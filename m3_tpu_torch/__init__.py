@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of the m3_tpu device codec, for one NVIDIA H100.
+"""PyTorch + CUDA port of the m3_tpu device path (the M3TSZ codec and
+the aggregator on its f64 arenas), for one NVIDIA H100.
 
 The JAX package ``m3_tpu`` stays the reference; this package mirrors its
 layout and names so each function's counterpart is easy to find, and it

@@ -19,6 +19,7 @@ def _modules():
 def test_every_module_imports_with_jax_blocked():
     mods = list(_modules())
     assert "m3_tpu_torch.encoding.m3tsz_torch" in mods
+    assert "m3_tpu_torch.aggregator.engine" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['m3_tpu'] = None\n"
