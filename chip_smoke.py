@@ -29,13 +29,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    on the very inputs the timed pass handed it, held bit-equal to its
    plain version once more and timed beside its bound, its plain
    version and the library call; peak device memory;
-6. the aggregator's two kernels (``segment_ingest``, ``segment_minmax``)
-   against their plain versions, int64 and float64, at the path's shape
-   (10^6 unique slots of 2^21) and at a collision shape (2^20 points in
-   4096 slots), with out-of-range and negative slots, NaN, an empty batch
-   and empty slots; each run twice, and the largest ulp difference of the
-   f64 collision sums between the two runs printed (the kernel's float
-   atomics add in no fixed order);
+6. the aggregator's two kernels (``segment_ingest``, ``segment_minmax``),
+   in place into non-zero state columns and in their fresh forms,
+   against their plain versions run on CPU copies, int64 and float64,
+   at the path's shape (10^6 unique slots of 2^21) and at a collision
+   shape (2^20 points in 4096 slots), and at the path's shape with 64
+   duplicate ids, with out-of-range and negative
+   slots, NaN, -0, an empty batch and empty slots; bit for bit, each
+   run twice, and the ulp distance of the f64 collision sums between
+   the two runs printed (0: kernel #3 adds in arrival order);
 7. the aggregator at full width (BASELINE configs #3 and #4): f64
    arenas, capacity 2^20, one 1 m window of 10^6 counters and 10^6
    gauges (six 10 s scrapes each) and 10^6 timers (ten scrapes), one
@@ -49,10 +51,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    decoded on the card, exact round trip, fallback under 5 %;
 9. times: samples/s through the entry point and the hot loop, one
    scrape per type under torch.profiler (host routing, device busy and
-   idle share), consume split into device lanes and host ``_emit``, each
-   new kernel on the path's own inputs from CUDA events around a CUDA
-   graph of 20 calls, beside its bound, its plain version and the
-   library calls; peak device memory.
+   idle share), consume split into device lanes and host ``_emit``; each
+   aggregator kernel on the inputs the arena handed it, from CUDA events
+   around a CUDA graph of 20 calls: in place beside its bound (the
+   points read once, each touched 32-byte sector of the state columns
+   read and written once), its plain version, the library calls into
+   the same columns, the arena step against the earlier composition
+   (fresh output, then ``add_`` / ``maximum`` / ``minimum``), kernel
+   #3 on the same scrape with 64 duplicate ids, and the fresh forms;
+   peak device memory.
 
 The last three lines are a JSON line of kernel records, the card's name
 and power limit, and the result line ``{"ok": true, "device": {...}}``.
@@ -105,20 +112,32 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return a.elapsed_time(b) / reps
 
 
-def graph_ms(fn, reps: int = 20) -> float:
+_SIDE: list = []  # the one stream graph_ms warms up and captures on
+
+
+def graph_ms(fn, reps: int = 20, flush=None) -> float:
     """Mean device time of ``fn`` in ms from CUDA events around one replay
     of a CUDA graph that holds ``reps`` calls: no host launch gaps
     between the calls, so a call of tens of microseconds is timed on the
-    card rather than on the host's launch rate."""
+    card rather than on the host's launch rate.  With ``flush`` (a
+    tensor larger than the L2 cache), each call is preceded by zeroing
+    it, so the call finds its data in device memory, not in L2, and the
+    graph of the zeroing alone is timed and subtracted."""
     import torch
 
-    side = torch.cuda.Stream()
+    if flush is not None:
+        return (graph_ms(lambda: (flush.zero_(), fn()), reps)
+                - graph_ms(flush.zero_, reps))
+    if not _SIDE:
+        _SIDE.append(torch.cuda.Stream())
+    side = _SIDE[0]
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()  # warm-up outside the capture
+        fn()  # warm-up outside the capture, on the capturing stream (the
+        # segment_ingest wrapper keeps its scratch per stream)
     torch.cuda.current_stream().wait_stream(side)
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with torch.cuda.graph(g, stream=side):
         for _ in range(reps):
             fn()
     g.replay()
@@ -242,59 +261,110 @@ def profiled(fn):
     return wall, busy_us * 1e-6
 
 
+def start_columns(rng, C: int, dtype):
+    """Non-zero starting state columns (sum, int64 count, sum of squares,
+    min, max); float min/max hold a few NaNs of their side's sign and
+    the sums a few -0."""
+    import torch
+
+    if dtype.is_floating_point:
+        cols = [np.round(rng.uniform(-500, 500, C), 2) for _ in range(5)]
+        cols[0][::101] = -0.0
+        cols[3][::89] = -np.float64(np.nan)
+        cols[4][::97] = np.float64(np.nan)
+    else:
+        cols = [rng.integers(-(1 << 62), 1 << 62, C) for _ in range(5)]
+    out = [torch.from_numpy(c).to(dtype) for c in cols]
+    out[1] = torch.from_numpy(rng.integers(0, 1 << 40, C))
+    return out
+
+
+def with_dups(rng, slots, L: int, k: int):
+    """A copy of ``slots`` in which k points take the slot of another
+    point in [0, L): a few duplicate ids in a scrape."""
+    out = slots.copy()
+    src = rng.choice(np.flatnonzero((slots >= 0) & (slots < L)), k)
+    out[rng.integers(0, slots.shape[0], k)] = slots[src]
+    return out
+
+
 def segment_kernel_checks(seed: int, dev) -> None:
-    """Phase 6: both aggregator kernels against their plain versions."""
+    """Phase 6: both aggregator kernels, in place and in their fresh
+    forms, against their plain versions run on CPU copies (on the CPU
+    ``index_add_`` adds in arrival order; on the card its float adds are
+    atomics), bit for bit, twice."""
     import torch
 
     from m3_tpu_torch.parallel import segment_ingest as si
 
     rng = np.random.default_rng(seed + 11)
     C_path, N_path = 1 << 21, 1_000_000
+    path = np.concatenate([rng.permutation(C_path)[:N_path - 64],
+                           rng.integers(-9, 0, 32), rng.integers(C_path, C_path + 9, 32)])
     shapes = {
         # the path: each series once per scrape, so unique slots
-        "path": (C_path, np.concatenate([rng.permutation(C_path)[:N_path - 64],
-                                         rng.integers(-9, 0, 32),
-                                         rng.integers(C_path, C_path + 9, 32)])),
+        "path": (C_path, path),
+        # the same with a few duplicate ids (64 points repeat another's slot)
+        "path+dups": (C_path, with_dups(rng, path, C_path, 64)),
         "collision": (4096, rng.integers(-10, 4096 + 10, 1 << 20)),
     }
     for shape, (C, slots_np) in shapes.items():
-        slots = torch.from_numpy(slots_np.astype(np.int32)).to(dev)
+        slots = torch.from_numpy(slots_np.astype(np.int32))
+        idx = slots.long()
         N = slots.shape[0]
         for dtype in (torch.int64, torch.float64):
             if dtype == torch.int64:
                 v = rng.integers(-(1 << 62), 1 << 62, N)
             else:
-                v = np.round(rng.uniform(0, 1000, N), 3)  # no cancellation
+                v = rng.uniform(-1, 1, N) * 10.0 ** rng.integers(-6, 7, N)  # order shows
                 v[::997] = np.nan
-            vals = torch.from_numpy(v).to(dtype).to(dev)
-            runs = [si.segment_ingest(slots, vals, C, with_sq=True) for _ in range(2)]
-            mm = [si.segment_minmax(slots, vals, C) for _ in range(2)]
-            plain = si.segment_ingest_plain(slots, vals, C, with_sq=True)
-            pmn, pmx = si.segment_minmax_plain(slots, vals, C)
-            for run in runs:
-                assert torch.equal(run[1], plain[1]), f"{shape} {dtype} counts"
-                for got, want in ((run[0], plain[0]), (run[2], plain[2])):
-                    if dtype == torch.int64 or shape == "path":
-                        assert same_bits(got, want), f"{shape} {dtype} sums"
-                    else:
-                        torch.testing.assert_close(got, want, rtol=1e-12, atol=0,
-                                                   equal_nan=True)
-            for mn, mx in mm:
-                assert same_bits(mn, pmn) and same_bits(mx, pmx), f"{shape} {dtype} minmax"
-            empty = int((plain[1] == 0).sum())
+                v[1::991] = -0.0
+            vals = torch.from_numpy(v).to(dtype)
+            start = start_columns(rng, C, dtype)
+            want = [c.clone() for c in start]
+            si.segment_ingest_into_plain(want[0], want[1], want[2], idx, vals)
+            si.segment_minmax_into_plain(want[3], want[4], idx, vals)
+            runs = []
+            for _ in range(2):
+                cols = [c.to(dev, copy=True) for c in start]
+                si.segment_ingest_into(cols[0], cols[1], cols[2], idx.to(dev), vals.to(dev))
+                si.segment_minmax_into(cols[3], cols[4], idx.to(dev), vals.to(dev))
+                cols = [c.cpu() for c in cols]
+                for name, g, w in zip(("sum", "count", "sq", "min", "max"), cols, want):
+                    assert same_bits(g, w), f"{shape} {dtype} into {name}"
+                runs.append(cols)
+            fresh = [si.segment_ingest(slots.to(dev), vals.to(dev), C, with_sq=True),
+                     si.segment_minmax(slots.to(dev), vals.to(dev), C)]
+            plain = [si.segment_ingest_plain(slots, vals, C, with_sq=True),
+                     si.segment_minmax_plain(slots, vals, C)]
+            for got, exp in zip(fresh, plain):
+                for g, w in zip(got, exp):
+                    assert same_bits(g.cpu(), w), f"{shape} {dtype} fresh"
+            empty = int((plain[0][1] == 0).sum())
             assert empty > 0 or shape == "collision"
-            assert bool(torch.isnan(pmn).any()) == dtype.is_floating_point
-            msg = f"phase6 {shape} {str(dtype)[6:]}: N={N} C={C}, {empty} empty slots"
+            assert shape == "path" or int(plain[0][1].max()) > 1
+            assert bool(torch.isnan(plain[1][0]).any()) == dtype.is_floating_point
+            msg = (f"phase6 {shape} {str(dtype)[6:]}: N={N} C={C}, {empty} empty slots, "
+                   f"non-zero starting columns")
             if dtype == torch.float64:
                 ulp = max(max_ulp(runs[0][0], runs[1][0]), max_ulp(runs[0][2], runs[1][2]))
-                msg += f", run-to-run f64 sums differ by at most {ulp} ulp"
-            log(msg + ": kernels == plain")
+                assert ulp == 0, ulp
+                msg += f", run-to-run f64 sums differ by {ulp} ulp"
+                w = [c.to(dev, copy=True) for c in start[:3]]
+                i_d, v_d = idx.to(dev), vals.to(dev)
+                ms = graph_ms(lambda: si.segment_ingest_into(w[0], w[1], w[2], i_d, v_d))
+                msg += f", segment_ingest into {ms:.4f} ms (CUDA graph)"
+            log(msg + ": into and fresh kernels == plain, bit for bit, twice")
     e = torch.zeros(0, dtype=torch.int32, device=dev)
     s0, c0 = si.segment_ingest(e, torch.zeros(0, dtype=torch.float64, device=dev), 8)
     mn0, mx0 = si.segment_minmax(e, torch.zeros(0, dtype=torch.int64, device=dev), 8)
     assert float(s0.abs().sum()) == 0 and int(c0.sum()) == 0
     assert int(mn0.min()) == np.iinfo(np.int64).max and int(mx0.max()) == np.iinfo(np.int64).min
-    log("phase6 empty batch: zeros and identities")
+    col = torch.ones(8, dtype=torch.float64, device=dev)
+    si.segment_ingest_into(col, torch.ones(8, dtype=torch.int64, device=dev), None, e,
+                           torch.zeros(0, dtype=torch.float64, device=dev))
+    assert float(col.sum()) == 8
+    log("phase6 empty batch: zeros and identities; columns untouched")
 
 
 def agg_drive(seed: int, n: int, dev, card: str, tag: str) -> dict:
@@ -551,90 +621,198 @@ def drain_encode_decode(seed: int, S: int, dev, card: str) -> None:
         f"({time.perf_counter() - t0:.1f} s)")
 
 
-def segment_kernel_times(seen: dict, launches: dict, card: str) -> list:
-    """Phase 9: each aggregator kernel on the inputs the main path handed
-    it, held against its plain version once more and timed beside its
-    bound, its plain version and the library calls, each from a CUDA
-    graph of 20 calls (``graph_ms``: the wrappers' host launch overhead
-    is larger than these kernels)."""
+def touched_bytes(idx, cols) -> int:
+    """Bytes of the 32-byte sectors of ``cols`` that the in-range lanes of
+    ``idx`` touch, each read once and written once."""
+    import torch
+
+    ok = idx[(idx >= 0) & (idx < cols[0].shape[0])]
+    return sum(2 * 32 * int(torch.unique(ok * c.element_size() // 32).numel())
+               for c in cols)
+
+
+def fresh_then_fold_seg3(sum_col, sq_col, cnt_col, idx, values):
+    """The arena step as composed before the in-place kernels: the kernel
+    into fresh zeroed outputs, then ``add_`` passes and a cast into the
+    state (with today's fresh form of the kernel)."""
     import torch
 
     from m3_tpu_torch.parallel import segment_ingest as si
 
-    (slots, vals, C), kw = seen["segment_ingest"]
-    assert kw == {"with_sq": True}
-    N = slots.shape[0]
-    got = si.segment_ingest(slots, vals, C, with_sq=True)
-    want = si.segment_ingest_plain(slots, vals, C, with_sq=True)
-    err = max(max_abs_err(a, b) for a, b in zip(got, want))
-    assert all(same_bits(a, b) for a, b in zip(got, want)), "segment_ingest != plain"
-    idx = torch.where((slots < 0) | (slots >= C), C, slots).long()
-    ones = torch.ones(N, dtype=torch.int32, device=vals.device)
-    vv = vals * vals
-    bufs = [torch.zeros(C + 1, dtype=d, device=vals.device)
-            for d in (vals.dtype, torch.int32, vals.dtype)]
-    forms = {}
-    for form, with_sq, n_out in (("moments", True, 3), ("sum_count", False, 2)):
-        srcs = (vals, ones, vv)[:n_out]
+    s, c, sq = si.segment_ingest(idx.to(torch.int32), values, sum_col.shape[0], with_sq=True)
+    sum_col.add_(s)
+    sq_col.add_(sq)
+    cnt_col.add_(c.to(cnt_col.dtype))
 
-        def lib():
-            # accumulates into buffers made once: no zeroing inside the timing
-            for b, x in zip(bufs, srcs):
-                b.index_add_(0, idx, x)
-        out_bytes = C * (vals.element_size() * (n_out - 1) + 4)
-        forms[form] = {
-            "ms": graph_ms(lambda: si.segment_ingest(slots, vals, C, with_sq=with_sq)),
-            # back-to-back eager calls: bound by the host's launch rate
-            "eager_ms": cuda_ms(lambda: si.segment_ingest(slots, vals, C, with_sq=with_sq)),
-            "plain_ms": graph_ms(lambda: si.segment_ingest_plain(slots, vals, C, with_sq)),
-            "library_ms": graph_ms(lib),
-            "library": f"index_add_ x{n_out}",
-            "bound_ms": (N * (4 + vals.element_size()) + out_bytes) / HBM_BYTES_PER_S * 1e3,
-        }
-    (mslots, mvals, mC), _ = seen["segment_minmax"]
-    Nm = mslots.shape[0]
-    mn, mx = si.segment_minmax(mslots, mvals, mC)
-    pmn, pmx = si.segment_minmax_plain(mslots, mvals, mC)
-    assert same_bits(mn, pmn) and same_bits(mx, pmx), "segment_minmax != plain"
-    mm_err = max(max_abs_err(mn, pmn), max_abs_err(mx, pmx))
-    midx = torch.where((mslots < 0) | (mslots >= mC), mC, mslots).long()
-    lo = torch.full((mC + 1,), float("inf"), dtype=mvals.dtype, device=mvals.device)
-    hi = torch.full((mC + 1,), float("-inf"), dtype=mvals.dtype, device=mvals.device)
-    mm = {
-        "ms": graph_ms(lambda: si.segment_minmax(mslots, mvals, mC)),
-        "eager_ms": cuda_ms(lambda: si.segment_minmax(mslots, mvals, mC)),
-        "plain_ms": graph_ms(lambda: si.segment_minmax_plain(mslots, mvals, mC)),
-        "library_ms": graph_ms(lambda: (lo.scatter_reduce_(0, midx, mvals, "amin"),
-                                       hi.scatter_reduce_(0, midx, mvals, "amax"))),
-        "bound_ms": (Nm * (4 + mvals.element_size()) + 2 * mC * mvals.element_size())
-        / HBM_BYTES_PER_S * 1e3,
+
+def _pick(a, b, b_wins):
+    """Elementwise pick of the earlier arena step: ``b`` where it wins in
+    IEEE total order (-0 < +0), NaN where either side is NaN."""
+    import torch
+
+    from m3_tpu_torch.parallel import segment_ingest as si
+
+    if not a.dtype.is_floating_point:
+        return torch.where(b_wins(b, a), b, a)
+    ka, kb = si._total_order_key(a.double()), si._total_order_key(b.double())
+    out = torch.where(b_wins(kb, ka), b, a)
+    return torch.where(torch.isnan(a) | torch.isnan(b), float("nan"), out)
+
+
+def fresh_then_fold_minmax(max_col, min_col, idx, values):
+    """The arena step as composed before the in-place kernels: the kernel
+    into fresh identities, then the total-order maximum / minimum
+    (``_pick``) and ``copy_`` into the state."""
+    import torch
+
+    from m3_tpu_torch.parallel import segment_ingest as si
+
+    mn, mx = si.segment_minmax(idx.to(torch.int32), values, max_col.shape[0])
+    max_col.copy_(_pick(max_col, mx, torch.gt))
+    min_col.copy_(_pick(min_col, mn, torch.lt))
+
+
+def segment_kernel_times(seen: dict, launches: dict, card: str) -> list:
+    """Phase 9: each aggregator kernel on the inputs the arena handed it
+    (a gauge scrape: the state's columns, the flat index, the values),
+    held against its plain version (on CPU copies) once more, then timed
+    on copies of those columns beside its bound, its plain version, the
+    library calls doing the same in-place work, and the whole arena step
+    against the fresh-output composition; the fresh forms beside them.  Each time
+    from a CUDA graph of 20 calls (``graph_ms``: the wrappers' host
+    launch overhead is larger than these kernels)."""
+    import torch
+
+    from m3_tpu_torch.aggregator import arena
+    from m3_tpu_torch.parallel import segment_ingest as si
+
+    (sum_c, cnt_c, sq_c, idx, vals), _ = seen["segment_ingest_into"]
+    N, L = idx.shape[0], sum_c.shape[0]
+    start = [c.clone() for c in (sum_c, cnt_c, sq_c)]
+    want = [c.to("cpu", copy=True) for c in start]
+    si.segment_ingest_into_plain(*want, idx.cpu(), vals.cpu())
+    got = [c.clone() for c in start]
+    si.segment_ingest_into(*got, idx, vals)
+    assert all(same_bits(g.cpu(), w) for g, w in zip(got, want)), "segment_ingest != plain"
+    err = max(max_abs_err(g.cpu(), w) for g, w in zip(got, want))
+    ok = (idx >= 0) & (idx < L)
+    li, lv = idx[ok], vals[ok]
+    lones, lvv = torch.ones_like(li), lv * lv
+    w = [c.clone() for c in start]
+    # twice the 50 MB L2: the state columns are cold when a scrape reaches
+    # the arena (the sorts and copies before it move more than L2 holds)
+    flush = torch.empty(1 << 25, dtype=torch.float32, device=vals.device)
+
+    def lib():
+        w[0].index_add_(0, li, lv)
+        w[1].index_add_(0, li, lones)
+        w[2].index_add_(0, li, lvv)
+
+    into = lambda: si.segment_ingest_into(w[0], w[1], w[2], idx, vals)
+    ing = {
+        "ms": graph_ms(into, flush=flush),
+        "warm_ms": graph_ms(into),
+        "eager_ms": cuda_ms(into),
+        "plain_ms": graph_ms(lambda: si.segment_ingest_into_plain(w[0], w[1], w[2], idx, vals),
+                            flush=flush),
+        "library_ms": graph_ms(lib, flush=flush),
+        "bound_ms": (N * (idx.element_size() + vals.element_size())
+                     + touched_bytes(idx, start)) / HBM_BYTES_PER_S * 1e3,
+        "step_ms": graph_ms(lambda: arena._seg3(w[0], w[2], w[1], idx, vals), flush=flush),
+        "fresh_step_ms": graph_ms(lambda: fresh_then_fold_seg3(w[0], w[2], w[1], idx, vals), flush=flush),
     }
-    for form, r in forms.items():
-        log(f"phase9 [{card}] segment_ingest ({form}) N={N} C={C}: {r['ms']:.4f} ms "
-            f"(eager back-to-back {r['eager_ms']:.4f} ms), "
-            f"bound {r['bound_ms']:.4f} ms (bytes), plain {r['plain_ms']:.3f} ms, "
-            f"{r['library']} {r['library_ms']:.3f} ms")
-    log(f"phase9 [{card}] segment_minmax N={Nm} C={mC}: {mm['ms']:.4f} ms "
-        f"(eager back-to-back {mm['eager_ms']:.4f} ms), bound "
-        f"{mm['bound_ms']:.4f} ms (bytes), plain {mm['plain_ms']:.3f} ms, "
-        f"scatter_reduce_ x2 {mm['library_ms']:.3f} ms")
-    mom = forms["moments"]
+    # the same scrape with a few duplicate ids: 64 points take another's lane
+    didx = torch.from_numpy(with_dups(np.random.default_rng(N), idx.cpu().numpy(), L, 64))
+    dwant = [c.to("cpu", copy=True) for c in start]
+    si.segment_ingest_into_plain(*dwant, didx, vals.cpu())
+    didx = didx.to(idx.device)
+    dgot = [c.clone() for c in start]
+    si.segment_ingest_into(*dgot, didx, vals)
+    assert all(same_bits(g.cpu(), x) for g, x in zip(dgot, dwant)), "dups: != plain"
+    dok = (didx >= 0) & (didx < L)
+    dli, dlv = didx[dok], vals[dok]
+    dones, dlvv = torch.ones_like(dli), dlv * dlv
+
+    def dlib():
+        w[0].index_add_(0, dli, dlv)
+        w[1].index_add_(0, dli, dones)
+        w[2].index_add_(0, dli, dlvv)
+
+    ing["dups_ms"] = graph_ms(lambda: si.segment_ingest_into(w[0], w[1], w[2], didx, vals),
+                              flush=flush)
+    ing["dups_library_ms"] = graph_ms(dlib, flush=flush)
+    slots32 = idx.to(torch.int32)
+    fresh = {}
+    for form, with_sq, n_out in (("moments", True, 3), ("sum_count", False, 2)):
+        fresh_fn = lambda: si.segment_ingest(slots32, vals, L, with_sq=with_sq)
+        fresh[form] = {
+            "ms": graph_ms(fresh_fn, flush=flush),
+            "warm_ms": graph_ms(fresh_fn),
+            "bound_ms": (N * (4 + vals.element_size())
+                         + L * (vals.element_size() * (n_out - 1) + 4)) / HBM_BYTES_PER_S * 1e3,
+        }
+    ing["fresh"] = fresh
+
+    (mn_c, mx_c, midx, mvals), _ = seen["segment_minmax_into"]
+    Nm, Lm = midx.shape[0], mn_c.shape[0]
+    mstart = [mn_c.clone(), mx_c.clone()]
+    mwant = [c.to("cpu", copy=True) for c in mstart]
+    si.segment_minmax_into_plain(*mwant, midx.cpu(), mvals.cpu())
+    mgot = [c.clone() for c in mstart]
+    si.segment_minmax_into(*mgot, midx, mvals)
+    assert all(same_bits(g.cpu(), x) for g, x in zip(mgot, mwant)), "segment_minmax != plain"
+    mm_err = max(max_abs_err(g.cpu(), x) for g, x in zip(mgot, mwant))
+    mok = (midx >= 0) & (midx < Lm)
+    mli, mlv = midx[mok], mvals[mok]
+    m = [c.clone() for c in mstart]
+    minto = lambda: si.segment_minmax_into(m[0], m[1], midx, mvals)
+    mfresh = lambda: si.segment_minmax(midx.to(torch.int32), mvals, Lm)
+    mm = {
+        "ms": graph_ms(minto, flush=flush),
+        "warm_ms": graph_ms(minto),
+        "eager_ms": cuda_ms(minto),
+        "plain_ms": graph_ms(lambda: si.segment_minmax_into_plain(m[0], m[1], midx, mvals),
+                            flush=flush),
+        "library_ms": graph_ms(lambda: (m[0].scatter_reduce_(0, mli, mlv, "amin"),
+                                       m[1].scatter_reduce_(0, mli, mlv, "amax")), flush=flush),
+        "bound_ms": (Nm * (midx.element_size() + mvals.element_size())
+                     + touched_bytes(midx, mstart)) / HBM_BYTES_PER_S * 1e3,
+        "step_ms": graph_ms(lambda: arena._minmax(m[1], m[0], midx, mvals), flush=flush),
+        "fresh_step_ms": graph_ms(lambda: fresh_then_fold_minmax(m[1], m[0], midx, mvals), flush=flush),
+        "fresh": {"ms": graph_ms(mfresh, flush=flush), "warm_ms": graph_ms(mfresh),
+                  "bound_ms": (Nm * (4 + mvals.element_size()) + 2 * Lm * mvals.element_size())
+                  / HBM_BYTES_PER_S * 1e3},
+    }
+    for name, r, lib_name in (("segment_ingest", ing, "index_add_ x3"),
+                              ("segment_minmax", mm, "scatter_reduce_ x2")):
+        log(f"phase9 [{card}] {name} into the state, N={N if r is ing else Nm} "
+            f"lanes={L if r is ing else Lm}, L2 flushed before each call: {r['ms']:.4f} ms "
+            f"(L2 warm {r['warm_ms']:.4f} ms, eager back-to-back {r['eager_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms (bytes), plain "
+            f"{r['plain_ms']:.4f} ms, {lib_name} into the same columns "
+            f"{r['library_ms']:.4f} ms; arena step {r['step_ms']:.4f} ms vs the fresh-output "
+            f"composition {r['fresh_step_ms']:.4f} ms")
+    log(f"phase9 [{card}] segment_ingest into the state, the same scrape with 64 "
+        f"duplicate ids (bit-equal to plain): {ing['dups_ms']:.4f} ms, index_add_ x3 "
+        f"{ing['dups_library_ms']:.4f} ms (L2 flushed)")
+    for form, r in fresh.items():
+        log(f"phase9 [{card}] segment_ingest fresh ({form}): {r['ms']:.4f} ms "
+            f"(L2 warm {r['warm_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms (bytes)")
+    log(f"phase9 [{card}] segment_minmax fresh: {mm['fresh']['ms']:.4f} ms "
+        f"(L2 warm {mm['fresh']['warm_ms']:.4f} ms), "
+        f"bound {mm['fresh']['bound_ms']:.4f} ms (bytes)")
     return [
         {"name": "segment_ingest", "route": "cuda",
          "source": "m3_tpu_torch/csrc/segment_ingest.cu",
          "replaces": "m3_tpu/parallel/pallas_ingest.py:65",
          "launches": launches[si.INGEST_KERNEL], "max_abs_err": err,
-         "ms": mom["ms"], "plain_ms": mom["plain_ms"], "bound_ms": mom["bound_ms"],
-         "bound_by": "bytes", "library_ms": mom["library_ms"], "eager_ms": mom["eager_ms"],
-         "library": "index_add_ x3 (several calls)", "form": "moments",
-         "forms": {"sum_count": forms["sum_count"]}},
+         "bound_by": "bytes", "library": "index_add_ x3 into the same columns",
+         "form": "into the state (moments)", **ing},
         {"name": "segment_minmax", "route": "cuda",
          "source": "m3_tpu_torch/csrc/segment_minmax.cu",
          "replaces": "m3_tpu/parallel/pallas_ingest.py:191",
          "launches": launches[si.MINMAX_KERNEL], "max_abs_err": mm_err,
-         "ms": mm["ms"], "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
-         "bound_by": "bytes", "library_ms": mm["library_ms"], "eager_ms": mm["eager_ms"],
-         "library": "scatter_reduce_ x2 (several calls)"},
+         "bound_by": "bytes", "library": "scatter_reduce_ x2 into the same columns",
+         "form": "into the state", **mm},
     ]
 
 
@@ -856,26 +1034,26 @@ def main() -> int:
     log(f"phase6 done in {time.perf_counter() - t0:.1f} s")
     agg_drive(args.seed + 7, 20_000, dev, card, "warm-up")  # lazy inits, same path
     seen_agg: dict = {}
-    orig_agg = (si.segment_ingest, si.segment_minmax)
+    orig_agg = (si.segment_ingest_into, si.segment_minmax_into)
 
     def keep_first(name, fn):
         def rec(*a, **kw):
             # the path's shape: a gauge scrape into the (W*C,) arena
-            if (name not in seen_agg and a[1].dtype == torch.float64
-                    and a[0].shape[0] == args.agg_series):
+            if (name not in seen_agg and a[-1].dtype == torch.float64
+                    and a[-1].shape[0] == args.agg_series):
                 seen_agg[name] = (a, kw)
             return fn(*a, **kw)
         return rec
 
-    si.segment_ingest = keep_first("segment_ingest", orig_agg[0])
-    si.segment_minmax = keep_first("segment_minmax", orig_agg[1])
+    si.segment_ingest_into = keep_first("segment_ingest_into", orig_agg[0])
+    si.segment_minmax_into = keep_first("segment_minmax_into", orig_agg[1])
     torch.cuda.reset_peak_memory_stats()
     for k in si.KERNELS:
         si.launches[k] = 0
     agg_t = agg_drive(args.seed, args.agg_series, dev, card, "phase7")
     agg_launches = dict(si.launches)
     agg_peak = torch.cuda.max_memory_allocated()
-    si.segment_ingest, si.segment_minmax = orig_agg
+    si.segment_ingest_into, si.segment_minmax_into = orig_agg
     log(f"phase7 launches on the aggregator path: {agg_launches}")
     assert all(agg_launches[k] > 0 for k in si.KERNELS), agg_launches
     log(f"phase7 [{card}] peak device memory {agg_peak / 2**30:.2f} GiB")

@@ -3,11 +3,12 @@ tensors.  The counterpart of ``m3_tpu/aggregator/arena.py``.
 
 Each metric type owns flat statistic tensors of shape ``(W * C,)`` — a
 ring of W resolution windows by C metric slots — and an ingest batch is a
-handful of segmented reductions:
+handful of segmented reductions straight into those tensors:
 
-    sum/count/sumsq  ->  kernel ``segment_ingest`` (moments form), fresh
-                         (W*C,) accumulators added to the state
-    min/max          ->  kernel ``segment_minmax`` (counters, gauges)
+    sum/count/sumsq  ->  kernel ``segment_ingest`` into the state's
+                         columns, each lane's points in arrival order
+    min/max          ->  kernel ``segment_minmax`` into the state's
+                         columns (counters, gauges)
     last (by time)   ->  stable sorts on (slot, time, -arrival) +
                          a masked write of the per-slot winners
 
@@ -17,9 +18,11 @@ the drain sorts (slot, value) pairs and reads ranks ``ceil(q*n) - 1``.
 State tuples hold tensors on the arena's device.  The ingest, reset and
 clear functions update the state they are given in place and return it
 (the JAX package donates its state to the same functions); consume only
-reads.  Every out-of-range index drops, negative ones included: the drop
-sentinels of the JAX package (``W*C``, ``C``, ``num_w*scap``) become
-masks here, since PyTorch's scatters have no ``mode="drop"``.
+reads.  Every out-of-range index of an ingest drops, negative ones
+included: the drop sentinels of the JAX package (``W*C``, ``C``,
+``num_w*scap``) become masks here, since PyTorch's scatters have no
+``mode="drop"``.  The ``*_clear_slots`` functions wrap a negative slot
+as the reference does (see ``_clear_index``).
 
 Only the f64 layout is ported; ``make_arenas`` raises for the packed one.
 """
@@ -78,27 +81,18 @@ def make_arenas(num_windows: int, capacity: int, sample_capacity: int,
 
 
 def _seg3(sum_col, sq_col, cnt_col, idx, values):
-    """The sum / sum² / count accumulation every arena shares: one launch
-    of the ``segment_ingest`` kernel (moments form) into fresh
-    accumulators, added to the state's columns in place.  ``idx`` >=
-    len(sum_col) drops."""
-    n_out = sum_col.shape[0]
-    if n_out > np.iinfo(np.int32).max:
-        raise ValueError(f"arena of {n_out} lanes exceeds the kernel's int32 slots")
-    s, c, sq = si.segment_ingest(idx.to(torch.int32), values, n_out, with_sq=True)
-    sum_col.add_(s)
-    sq_col.add_(sq)
-    cnt_col.add_(c.to(cnt_col.dtype))
+    """The sum / sum² / count accumulation every arena shares: one
+    ``segment_ingest`` launch into the state's own columns, each lane's
+    points added in arrival order, as the reference's scatter adds them.
+    ``idx`` >= len(sum_col) drops."""
+    si.segment_ingest_into(sum_col, cnt_col, sq_col, idx, values)
 
 
 def _minmax(max_col, min_col, idx, values):
-    """Fold the batch's per-lane max and min into the state's columns:
-    one launch of the ``segment_minmax`` kernel into fresh identities,
-    then the kernel's order (IEEE total order for floats) against the
-    stored values.  The same result as a drop-mode scatter max / min."""
-    mn, mx = si.segment_minmax(idx.to(torch.int32), values, max_col.shape[0])
-    max_col.copy_(si.maximum(max_col, mx))
-    min_col.copy_(si.minimum(min_col, mn))
+    """Fold the batch into the state's max and min columns: one
+    ``segment_minmax`` launch, the kernel's order (IEEE total order for
+    floats).  The same result as a drop-mode scatter max / min."""
+    si.segment_minmax_into(min_col, max_col, idx, values)
 
 
 def _scatter_max_drop(col, slots, vals):
@@ -176,11 +170,24 @@ def _window_slice(a, window: int, capacity: int):
 
 
 def _clear_index(slots, num_windows: int, capacity: int):
-    """(slots kept, flat (W*len,) index of every window row): slots
-    outside [0, C), the pad sentinel and negative ones, drop."""
-    keep = slots[(slots >= 0) & (slots < capacity)].long()
+    """(``last_at`` index, flat (W*len,) index of every window row) of the
+    slots to clear.  This is the reference's behaviour
+    (``m3_tpu.aggregator.arena.*_clear_slots``): the flat index
+    ``w*C + s`` with slots >= C sent to the drop sentinel, and a negative
+    index wrapped once by the column's length as numpy indexes (dropped
+    if still negative).  So slot -1 clears slot C-1 of every window and
+    ``last_at[C-1]``; a slot below -C clears only some windows and
+    leaves ``last_at`` alone."""
+    s = slots.long()
+    n = num_windows * capacity
     rows = torch.arange(num_windows, dtype=torch.int64, device=slots.device)
-    return keep, (rows[:, None] * capacity + keep[None, :]).reshape(-1)
+    flat = torch.where(s[None, :] >= capacity, n, rows[:, None] * capacity + s[None, :])
+
+    def wrapped(i, size):
+        i = torch.where(i < 0, i + size, i)
+        return i[(i >= 0) & (i < size)]
+
+    return wrapped(s, capacity), wrapped(flat.reshape(-1), n)
 
 
 # ---------------------------------------------------------------------------
@@ -256,12 +263,12 @@ def counter_clear_slots(state: CounterState, slots, num_windows: int,
                         capacity: int) -> CounterState:
     """Zero a set of slots across every window ring row (slot free: a
     recycled slot must not inherit un-drained window stats)."""
-    keep, idx = _clear_index(slots, num_windows, capacity)
+    at, idx = _clear_index(slots, num_windows, capacity)
     for col in (state.sum, state.sum_sq, state.count):
         col[idx] = 0
     state.max[idx] = I64_MIN
     state.min[idx] = I64_MAX
-    state.last_at[keep] = 0
+    state.last_at[at] = 0
     return state
 
 
@@ -358,12 +365,12 @@ def gauge_reset_window(state: GaugeState, window: int, capacity: int) -> GaugeSt
 
 def gauge_clear_slots(state: GaugeState, slots, num_windows: int,
                       capacity: int) -> GaugeState:
-    keep, idx = _clear_index(slots, num_windows, capacity)
+    at, idx = _clear_index(slots, num_windows, capacity)
     for col in (state.last, state.last_time, state.sum, state.sum_sq, state.count):
         col[idx] = 0
     state.max[idx] = float("-inf")
     state.min[idx] = float("inf")
-    state.last_at[keep] = 0
+    state.last_at[at] = 0
     return state
 
 
@@ -515,13 +522,16 @@ def timer_clear_slots(state: TimerState, slots, num_windows: int,
                       capacity: int) -> TimerState:
     """Clear freed timer slots: zero the moment rows and retarget their
     buffered samples to the drop sentinel, so a recycled slot's
-    quantiles don't include the previous occupant's samples."""
-    keep, idx = _clear_index(slots, num_windows, capacity)
+    quantiles don't include the previous occupant's samples.  As in the
+    reference, a sample is retargeted when its slot equals one of
+    ``slots`` as given (a negative slot wraps for the moments and
+    ``last_at`` but matches no sample)."""
+    at, idx = _clear_index(slots, num_windows, capacity)
     for col in (state.sum, state.sum_sq, state.count):
         col[idx] = 0
-    hit = torch.isin(state.sample_slot, keep.to(torch.int32))
+    hit = torch.isin(state.sample_slot, slots.to(torch.int32))
     state.sample_slot.masked_fill_(hit, capacity)
-    state.last_at[keep] = 0
+    state.last_at[at] = 0
     return state
 
 
@@ -543,7 +553,11 @@ _FIELD_DTYPES = {
 def state_from_numpy(kind: str, arrays: Mapping[str, np.ndarray], device=None):
     """A ``kind`` ("counter", "gauge" or "timer") state on ``device`` from
     the JAX state's fields as numpy arrays by name (``state._asdict()``).
-    Lossless: each field must already have the JAX dtype."""
+    Lossless, but for the sign of a NaN in a float ``max`` / ``min``
+    column, which becomes its side's (clear in ``max``, set in ``min``):
+    the ``segment_minmax`` kernel keeps only such a stored NaN sticky.
+    The JAX arenas store no NaN there.  Each field must already have the
+    JAX dtype."""
     cls = _STATES[kind]
     dev = resolve_device(device)
     fields = {}
@@ -552,6 +566,11 @@ def state_from_numpy(kind: str, arrays: Mapping[str, np.ndarray], device=None):
         want = _FIELD_DTYPES[kind][name]
         if a.dtype != want:
             raise TypeError(f"{kind}.{name}: want {np.dtype(want)}, got {a.dtype}")
+        if a.dtype == np.float64 and name in ("max", "min"):
+            sign = np.uint64(1 << 63)
+            bits = a.view(np.uint64)
+            a = np.where(np.isnan(a), bits | sign if name == "min" else bits & ~sign,
+                         bits).view(np.float64)
         fields[name] = torch.tensor(a, device=dev)
     return cls(**fields)
 

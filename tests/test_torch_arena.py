@@ -3,8 +3,11 @@ against ``m3_tpu.aggregator.arena``, with the JAX ingest on both of its
 implementations: ``impl="pallas"`` (the Pallas kernels in interpret mode)
 and ``impl="scatter"``.
 
-Tolerances: integer lanes, counts, min/max/last, sample buffers and
-quantiles exact; f64 sums and sums of squares ``atol=1e-9``
+Tolerances: every field of the state exact, f64 sums and sums of squares
+included, against ``impl="scatter"`` (the port adds each lane's points
+in arrival order, as the reference's scatter does); against
+``impl="pallas"``, whose Pallas path adds a fresh per-batch sum to the
+state, f64 sums and sums of squares ``atol=1e-9``
 (tests/test_pallas_ingest.py's); stdev ``rtol=1e-12``.  Sizes are
 ``TestArenaIngestImplFlip``'s: W = 2, C = 512, N = 4096.
 """
@@ -49,13 +52,20 @@ def _np(state):
     return {k: np.asarray(v) for k, v in state._asdict().items()}
 
 
-def _assert_state(port, ref, what):
+def _assert_state(port, ref, what, sums_atol=None):
+    """Every field bit for bit (NaN as one NaN), or the float sums within
+    ``sums_atol`` where one is given."""
     got = ta.state_to_numpy(port)
     for name, want in _np(ref).items():
         g = got[name]
         assert g.dtype == want.dtype, (what, name)
-        if name in FLOAT_SUMS:
-            np.testing.assert_allclose(g, want, atol=1e-9, err_msg=f"{what}.{name}")
+        if name in FLOAT_SUMS and sums_atol is not None:
+            np.testing.assert_allclose(g, want, atol=sums_atol, err_msg=f"{what}.{name}")
+        elif g.dtype == np.float64:
+            np.testing.assert_array_equal(np.isnan(g), np.isnan(want), err_msg=f"{what}.{name}")
+            ok = ~np.isnan(want)
+            np.testing.assert_array_equal(g[ok].view(np.uint64), want[ok].view(np.uint64),
+                                          err_msg=f"{what}.{name}")
         else:
             np.testing.assert_array_equal(g, want, err_msg=f"{what}.{name}")
 
@@ -110,8 +120,9 @@ def ingested(request, batch):
 
 def test_ingest_matches_jax(ingested):
     (port, ref), impl = ingested
+    atol = 1e-9 if impl == "pallas" else None
     for p, r, kind in zip(port, ref, ("counter", "gauge", "timer")):
-        _assert_state(p, r, f"{kind}[{impl}]")
+        _assert_state(p, r, f"{kind}[{impl}]", sums_atol=atol)
 
 
 def _as_port(kind, ref_state):
@@ -160,6 +171,33 @@ def test_reset_window_and_clear_slots_match_jax(ingested):
         ref = j_clear(type(st)(*[jnp.array(x) for x in st]), jnp.asarray(clear), W, C)
         port = t_clear(_as_port(kind, st), torch.from_numpy(clear), W, C)
         _assert_state(port, ref, f"{kind} clear")
+
+
+@pytest.mark.parametrize("kind", ["counter", "gauge", "timer"])
+def test_clear_slots_negative_slots_match_jax(ingested, kind):
+    """A negative slot wraps as in the reference: the flat index w*C + s
+    wraps once by W*C (dropped if still negative), last_at's by C."""
+    (_, refs), _ = ingested
+    st = refs[("counter", "gauge", "timer").index(kind)]
+    slots = np.asarray([-1, -C - 3, -2 * C + 1, -2 * C - 1, -3 * C, 6, C, C + 4], np.int32)
+    j_clear = getattr(ja, f"{kind}_clear_slots")
+    t_clear = getattr(ta, f"{kind}_clear_slots")
+    ref = j_clear(type(st)(*[jnp.array(x) for x in st]), jnp.asarray(slots), W, C)
+    port = t_clear(_as_port(kind, st), torch.from_numpy(slots), W, C)
+    _assert_state(port, ref, f"{kind} clear negative")
+
+
+def test_clear_slots_negative_slot_semantics():
+    """W = 3, C = 4: slot -5 clears slot 3 of every window and leaves
+    last_at alone; slot -13 clears slot 3 of windows 0 and 1 only."""
+    for slot, windows in ((-5, [0, 1, 2]), (-13, [0, 1])):
+        st = ta.counter_init(3, 4, "cpu")
+        st.count.fill_(7)
+        st.last_at.fill_(9)
+        st = ta.counter_clear_slots(st, torch.tensor([slot], dtype=torch.int32), 3, 4)
+        cleared = (st.count.view(3, 4) == 0).nonzero().tolist()
+        assert cleared == [[w, 3] for w in windows], (slot, cleared)
+        assert (st.last_at == 9).all()
 
 
 def test_state_round_trip_is_lossless(ingested):
@@ -311,3 +349,16 @@ def test_arena_classes_and_layouts():
     for at in ta.AggregationType:
         assert t.lane_for_type(at) == jt.lane_for_type(at)
         assert c.lane_for_type(at) == jc.lane_for_type(at)
+
+
+def test_state_from_numpy_gives_min_max_nans_their_side():
+    """The segment_minmax kernel keeps a stored NaN sticky only with its
+    side's sign: clear in max, set in min."""
+    arrays = _np(ja.gauge_init(1, 4))
+    nan_pos, nan_neg = np.float64(np.nan), -np.float64(np.nan)
+    arrays["max"] = np.asarray([nan_neg, nan_pos, 1.0, -np.inf])
+    arrays["min"] = np.asarray([nan_pos, nan_neg, 1.0, np.inf])
+    st = ta.state_from_numpy("gauge", arrays, "cpu")
+    assert not np.signbit(st.max[:2].numpy()).any() and np.isnan(st.max[:2].numpy()).all()
+    assert np.signbit(st.min[:2].numpy()).all() and np.isnan(st.min[:2].numpy()).all()
+    assert st.max[2:].tolist() == [1.0, -np.inf] and st.min[2:].tolist() == [1.0, np.inf]

@@ -1,12 +1,17 @@
 """The port's segment reductions (``m3_tpu_torch/parallel/segment_ingest.py``)
-against the JAX package's ``pallas_ingest`` (its Pallas kernels in
-interpret mode, and the XLA scatter oracle), on the CPU, where the
-wrappers take their plain versions.  The CUDA kernels are held against
-the same plain versions on a card by tests/test_torch_gpu.py.
+against the JAX package: the fresh-output forms against ``pallas_ingest``
+(its Pallas kernels in interpret mode, and the XLA scatter oracle), the
+in-place forms against the reference's drop-mode scatters into non-zero
+columns; on the CPU, where the wrappers take their plain versions.  The
+CUDA kernels are held against the same plain versions on a card by
+tests/test_torch_gpu.py.
 
-Tolerances: counts, integer lanes and min/max exact; f64 sums and sums
-of squares ``atol=1e-9`` (tests/test_pallas_ingest.py's own).  Sizes
-are test_pallas_ingest.py's: interpret mode is slow.
+Tolerances: the in-place forms bit for bit, float sums included (each
+lane's points are added in arrival order, as the reference's scatter
+adds them); the fresh forms' counts, integer lanes and min/max exact,
+their f64 sums and sums of squares ``atol=1e-9`` against the Pallas
+kernels (tests/test_pallas_ingest.py's own).  Sizes are
+test_pallas_ingest.py's: interpret mode is slow.
 """
 
 import numpy as np
@@ -175,9 +180,13 @@ def test_minmax_nan_and_signed_zero_rule():
 
 
 def test_total_order_minimum_maximum():
+    """Folding b into columns holding a, lane by lane, is the elementwise
+    min and max in IEEE total order with NaN sticky."""
     a = torch.tensor([-0.0, 0.0, 1.0, np.nan, 2.0])
     b = torch.tensor([0.0, -0.0, np.nan, 1.0, 3.0])
-    mn, mx = si.minimum(a, b).numpy(), si.maximum(a, b).numpy()
+    mn, mx = a.clone(), a.clone()
+    si.segment_minmax_into(mn, mx, torch.arange(5), b)
+    mn, mx = mn.numpy(), mx.numpy()
     assert np.signbit(mn[:2]).all() and not np.signbit(mx[:2]).any()
     assert np.isnan(mn[2:4]).all() and np.isnan(mx[2:4]).all()
     assert mn[4] == 2.0 and mx[4] == 3.0
@@ -198,3 +207,122 @@ def test_wrappers_route_cpu_to_plain_and_reject_bad_inputs():
     meta = torch.empty(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         si.segment_minmax(meta, torch.empty(4, device="meta"), 8)
+
+
+# ---- the in-place forms, against the reference's drop-mode scatters ----
+
+INTO_DTYPES = [np.float64, np.float32, np.int64, np.int32]
+
+
+def _into_inputs(dtype, idx_dtype, seed, L=300, N=5000):
+    """Heavy collisions (~17 points a lane), out-of-range and negative
+    lanes, columns that start non-zero; floats spread over 16 decades (so
+    the order of the adds shows in the bits) with NaN and +-0; integers
+    near the extremes (so the sums wrap)."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(-5, L + 5, N).astype(idx_dtype)
+    if np.issubdtype(dtype, np.floating):
+        vals = (rng.normal(0, 1, N) * 10.0 ** rng.integers(-8, 8, N)).astype(dtype)
+        vals[::101] = np.nan
+        vals[1::53] = -0.0
+        vals[2::53] = 0.0
+        col = (rng.normal(0, 1, L) * 10.0 ** rng.integers(-4, 4, L)).astype(dtype)
+        col[::37] = -0.0
+        col[5] = np.nan
+    else:
+        info = np.iinfo(dtype)
+        vals = rng.integers(info.min, info.max, N, dtype=dtype, endpoint=True)
+        col = rng.integers(info.min, info.max, L, dtype=dtype, endpoint=True)
+    return idx, vals, col
+
+
+def _seed(dtype, idx_dtype):
+    return 2 * INTO_DTYPES.index(dtype) + int(idx_dtype == np.int64)
+
+
+def _ref_idx(idx, L):
+    """The reference wraps a negative index; the into-forms drop it (as
+    the arena's flat_window_index does before every ingest)."""
+    return jnp.asarray(np.where(idx < 0, L, idx))
+
+
+def _same(got, want):
+    """Bit for bit, every NaN taken as one NaN."""
+    got, want = got.numpy(), np.asarray(want)
+    assert got.dtype == want.dtype
+    if np.issubdtype(want.dtype, np.floating):
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        ok = ~np.isnan(want)
+        np.testing.assert_array_equal(got[ok].view(f"u{got.itemsize}"),
+                                      want[ok].view(f"u{want.itemsize}"))
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("cnt_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("dtype", INTO_DTYPES)
+def test_ingest_into_matches_reference_scatter(dtype, idx_dtype, cnt_dtype):
+    idx, vals, col = _into_inputs(dtype, idx_dtype, seed=_seed(dtype, idx_dtype))
+    L = col.shape[0]
+    cnt = np.arange(L, dtype=cnt_dtype) * 3
+    sq = col[::-1].copy()
+    t_sum, t_cnt, t_sq = (x.clone() for x in _t(col, cnt, sq))  # numpy stays the start
+    si.segment_ingest_into(t_sum, t_cnt, t_sq, *_t(idx, vals))
+    ji, jv = _ref_idx(idx, L), jnp.asarray(vals)
+    _same(t_sum, jnp.asarray(col).at[ji].add(jv, mode="drop"))
+    _same(t_cnt, jnp.asarray(cnt).at[ji].add(1, mode="drop"))
+    _same(t_sq, jnp.asarray(sq).at[ji].add(jv * jv, mode="drop"))
+    # sq_col may be None: the sum/count form
+    t_sum2, t_cnt2 = (x.clone() for x in _t(col, cnt))
+    si.segment_ingest_into(t_sum2, t_cnt2, None, *_t(idx, vals))
+    assert torch.equal(t_sum2.view(torch.uint8), t_sum.view(torch.uint8))
+    assert torch.equal(t_cnt2, t_cnt)
+
+
+@pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("dtype", INTO_DTYPES)
+def test_minmax_into_matches_reference_scatter(dtype, idx_dtype):
+    idx, vals, col = _into_inputs(dtype, idx_dtype, seed=_seed(dtype, idx_dtype) + 10)
+    L = col.shape[0]
+    mx = col[::-1].copy()
+    t_mn, t_mx = (x.clone() for x in _t(col, mx))
+    si.segment_minmax_into(t_mn, t_mx, *_t(idx, vals))
+    ji, jv = _ref_idx(idx, L), jnp.asarray(vals)
+    want_mn = jnp.asarray(col).at[ji].min(jv, mode="drop")
+    want_mx = jnp.asarray(mx).at[ji].max(jv, mode="drop")
+    _same(t_mn, want_mn)
+    _same(t_mx, want_mx)
+    if np.issubdtype(dtype, np.floating):
+        assert np.isnan(t_mn.numpy()).any() and np.isnan(t_mx.numpy()).any()
+
+
+def test_minmax_into_signed_zeros_and_sticky_nan():
+    """-0 < +0 whatever the order; a stored NaN of either sign stays."""
+    mn = torch.tensor([0.0, -0.0, np.nan, -np.nan, 1.0], dtype=torch.float64)
+    mx = torch.tensor([-0.0, 0.0, np.nan, -np.nan, 1.0], dtype=torch.float64)
+    idx = torch.tensor([0, 1, 0, 1, 2, 3, 4, -1, 5])
+    vals = torch.tensor([-0.0, 0.0, 0.0, -0.0, 5.0, -5.0, np.nan, -9.0, 9.0],
+                        dtype=torch.float64)
+    si.segment_minmax_into(mn, mx, idx, vals)
+    assert np.signbit(mn[:2].numpy()).all() and not np.signbit(mx[:2].numpy()).any()
+    assert torch.isnan(mn[2:]).all() and torch.isnan(mx[2:]).all()
+
+
+def test_into_rejects_bad_arguments():
+    idx, vals = torch.zeros(4, dtype=torch.int32), torch.zeros(4, dtype=torch.float64)
+    col = torch.zeros(8, dtype=torch.float64)
+    cnt = torch.zeros(8, dtype=torch.int64)
+    with pytest.raises(TypeError):
+        si.segment_ingest_into(col, cnt, None, idx.to(torch.int16), vals)
+    with pytest.raises(TypeError):
+        si.segment_ingest_into(col.float(), cnt, None, idx, vals)
+    with pytest.raises(TypeError):
+        si.segment_ingest_into(col, cnt.double(), None, idx, vals)
+    with pytest.raises(ValueError):
+        si.segment_ingest_into(col, cnt[:4], None, idx, vals)
+    with pytest.raises(TypeError):
+        si.segment_minmax_into(col, col.float(), idx, vals)
+    before = dict(si.launches)
+    si.segment_ingest_into(col, cnt, col.clone(), idx, vals)
+    assert si.launches == before  # the plain path is not a launch
