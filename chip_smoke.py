@@ -47,8 +47,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    against a numpy oracle built from the same samples, and both kernels
    must have launched;
 8. drain -> encode -> decode: 10^5 gauges at 10 s under 1m:2d through
-   120 windows (a 2 h block), the drained LAST values encoded and
-   decoded on the card, exact round trip, fallback under 5 %;
+   120 windows (a 2 h block) on the default (packed) arena layout, the
+   drained LAST values (bit-exact in both layouts) encoded and decoded
+   on the card, exact round trip, fallback under 5 %;
 9. times: samples/s through the entry point and the hot loop, one
    scrape per type under torch.profiler (host routing, device busy and
    idle share), consume split into device lanes and host ``_emit``; each
@@ -59,7 +60,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the same columns, the arena step against the earlier composition
    (fresh output, then ``add_`` / ``maximum`` / ``minimum``), kernel
    #3 on the same scrape with 64 duplicate ids, and the fresh forms;
-   peak device memory.
+   peak device memory;
+10. the aggregator at full width on the default arena layout (packed:
+   sort, cumsum, segmented scan and dense merges; none of the four
+   kernels, and none may launch): phase 7's configuration and traffic
+   from the same seed, consume held against phase 7's f64 run within
+   the cross-layout envelopes (counter lanes, gauge COUNT/MIN/MAX/LAST
+   and timer COUNT exact; gauge sums and timer moments rtol 1e-6; timer
+   values f32-rounded, rel 1e-6; timer stdev rtol 1e-5); then the first
+   2^16 series of the same traffic on the card and on the CPU, every
+   state field bit-equal after every scrape, with a scrape of 64
+   duplicate ids per type and a counter batch outside int16 that
+   promotes 1000 slots into the overflow pool, and the flushed rows;
+11. times of the packed layout beside phase 7's f64 numbers: samples/s
+   through the entry point and the hot loop, one profiled scrape per
+   type (wall, host routing, device busy, idle share, device kernels
+   and copies launched), consume split into device lanes and host
+   ``_emit``, peak device memory.
 
 The last three lines are a JSON line of kernel records, the card's name
 and power limit, and the result line ``{"ok": true, "device": {...}}``.
@@ -236,29 +253,37 @@ def max_ulp(a, b) -> int:
     return int(d.max()) if d.numel() else 0
 
 
-def profiled(fn):
-    """(wall s, device busy s) of ``fn`` run once under torch.profiler:
-    the wall clock around it ends in a synchronize; busy time is the sum
-    of the device's own kernel and copy times from the trace.  The
+def profiled(fn, tries: int = 3):
+    """(wall s, device busy s, device ops) of ``fn`` run once under
+    torch.profiler: the wall clock around it ends in a synchronize; busy
+    time is the sum of the device's own kernel and copy times from the
+    trace, and device ops the number of those kernels and copies.  The
     profiler's host-side recording makes the wall time a little longer
-    than unprofiled."""
+    than unprofiled.  A trace with no device events at all (the
+    profiler drops one now and then) is taken again, ``fn`` included,
+    up to ``tries`` times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for attempt in range(tries):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy_us = 0.0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            busy_us += getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0.0))
-    assert busy_us > 0, "the profiler saw no device time"
-    return wall, busy_us * 1e-6
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy_us = 0.0
+        ops = 0
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                busy_us += getattr(e, "self_device_time_total",
+                                   getattr(e, "self_cuda_time_total", 0.0))
+                ops += e.count
+        if busy_us > 0:
+            return wall, busy_us * 1e-6, ops
+        log(f"profiled: trace {attempt + 1} of {tries} holds no device events; again")
+    raise AssertionError("the profiler saw no device time")
 
 
 def start_columns(rng, C: int, dtype):
@@ -367,33 +392,30 @@ def segment_kernel_checks(seed: int, dev) -> None:
     log("phase6 empty batch: zeros and identities; columns untouched")
 
 
-def agg_drive(seed: int, n: int, dev, card: str, tag: str) -> dict:
-    """Phase 7: one 1 m window of n counters, n gauges (six 10 s scrapes
-    each) and n timers (ten scrapes) through the aggregator on the card,
-    plus a scrape into the next window with a few samples too early and
-    too far ahead; consume checked against a numpy oracle.  Returns the
-    phase's times."""
-    import torch
+AGG_POLICY = "1m:2d"
 
-    from m3_tpu_torch.aggregator import engine as te
+
+def agg_kinds():
+    """Aggregation IDs and scrapes per 1 m window of each metric type."""
     from m3_tpu_torch.metrics.aggregation import AggregationID, AggregationType as AT
-    from m3_tpu_torch.metrics.policy import StoragePolicy
     from m3_tpu_torch.metrics.types import MetricType as MT
 
-    rng = np.random.default_rng(seed)
-    policy = StoragePolicy.parse("1m:2d")
-    opts = te.AggregatorOptions(capacity=1 << 20, num_windows=2,
-                                timer_sample_capacity=1 << 24, layout="f64",
-                                storage_policies=(policy,))
-    agg = te.Aggregator(num_shards=1, opts=opts, device=dev)
-    ml = agg.shards[0].lists[policy]
-    kinds = {
+    return {
         MT.COUNTER: (6, AggregationID.compress([AT.SUM, AT.MIN, AT.MAX]), b"cnt"),
         MT.GAUGE: (6, AggregationID.compress([AT.LAST, AT.SUM, AT.MIN, AT.MAX]), b"gau"),
         MT.TIMER: (10, AggregationID.DEFAULT, b"tim"),
     }
+
+
+def agg_traffic(rng, n: int) -> dict:
+    """One 1 m window of n series per type (each series once per scrape,
+    in a fresh order each scrape) and one scrape's times into the next
+    window: type -> (times (k, n), values (k, n), k + 1 permutations,
+    next-window times (n,), ids)."""
+    from m3_tpu_torch.metrics.types import MetricType as MT
+
     data = {}
-    for mt, (k, aid, prefix) in kinds.items():
+    for mt, (k, aid, prefix) in agg_kinds().items():
         step = MINUTE // k
         times = (T0_AGG + np.arange(k, dtype=np.int64)[:, None] * step
                  + rng.integers(0, step, (k, n)))
@@ -407,6 +429,33 @@ def agg_drive(seed: int, n: int, dev, card: str, tag: str) -> dict:
         perms = [rng.permutation(n) for _ in range(k + 1)]
         nxt_t = T0_AGG + MINUTE + rng.integers(0, MINUTE, n)
         data[mt] = (times, vals, perms, nxt_t, [prefix + b".%07d" % i for i in range(n)])
+    return data
+
+
+def agg_drive(seed: int, n: int, dev, card: str, tag: str, layout=None):
+    """Phases 7 and 10: one 1 m window of n counters, n gauges (six 10 s
+    scrapes each) and n timers (ten scrapes) through the aggregator on
+    the card, on ``layout`` (None: the default, packed), plus a scrape
+    into the next window with a few samples too early and too far ahead.
+    On the f64 layout, consume is checked against a numpy oracle.
+    Returns the phase's times and the flushed values, (type, agg type)
+    -> (n,) in series order."""
+    import torch
+
+    from m3_tpu_torch.aggregator import engine as te
+    from m3_tpu_torch.metrics.aggregation import AggregationType as AT
+    from m3_tpu_torch.metrics.policy import StoragePolicy
+    from m3_tpu_torch.metrics.types import MetricType as MT
+
+    rng = np.random.default_rng(seed)
+    policy = StoragePolicy.parse(AGG_POLICY)
+    opts = te.AggregatorOptions(capacity=1 << 20, num_windows=2,
+                                timer_sample_capacity=1 << 24, layout=layout,
+                                storage_policies=(policy,))
+    agg = te.Aggregator(num_shards=1, opts=opts, device=dev)
+    ml = agg.shards[0].lists[policy]
+    kinds = agg_kinds()
+    data = agg_traffic(rng, n)
 
     t = {"n_series": n}
     emitted = {}
@@ -471,8 +520,10 @@ def agg_drive(seed: int, n: int, dev, card: str, tag: str) -> dict:
     t["consume_host_emit_s"] = split["emit"]
     assert ml.consumed_until == T0_AGG + MINUTE
 
-    # the numpy oracle, in scrape order
+    # the flushed values in series order, then (f64) the numpy oracle,
+    # in scrape order
     q = opts.quantiles
+    got = {}
     for fm in flushed:
         assert fm.timestamp_nanos == T0_AGG + MINUTE
         times, vals, perms, _, _ = data[fm.metric_type]
@@ -480,6 +531,15 @@ def agg_drive(seed: int, n: int, dev, card: str, tag: str) -> dict:
         inv = np.full(opts.capacity, -1, np.int64)
         inv[slot_of[fm.metric_type]] = np.arange(n)
         assert (counts[fm.metric_type][slot_of[fm.metric_type]] == k).all()
+        for at in set(AT(x) for x in np.unique(fm.types)):
+            sel = fm.types == int(at)
+            idx = inv[fm.slots[sel]]
+            assert sel.sum() == n and (idx >= 0).all(), (fm.metric_type, at)
+            got[fm.metric_type, at] = np.empty(n)
+            got[fm.metric_type, at][idx] = fm.values[sel]
+        emitted[fm.metric_type.name] = int(fm.values.size)
+        if layout != "f64":
+            continue
         if fm.metric_type is MT.COUNTER:
             iv = vals.astype(np.int64)
             want = {AT.SUM: iv.sum(axis=0), AT.MIN: iv.min(axis=0), AT.MAX: iv.max(axis=0)}
@@ -511,17 +571,12 @@ def agg_drive(seed: int, n: int, dev, card: str, tag: str) -> dict:
             for qq, at in zip(q, (AT.P50, AT.P95, AT.P99)):
                 want[at] = srt[rank(qq)]
         for at, w in want.items():
-            sel = fm.types == int(at)
-            idx = inv[fm.slots[sel]]
-            assert sel.sum() == n and (idx >= 0).all(), (fm.metric_type, at)
-            got = np.empty(n)
-            got[idx] = fm.values[sel]
+            g = got[fm.metric_type, at]
             w = np.asarray(w, np.float64)
             if at is AT.STDEV:
-                np.testing.assert_allclose(got, w, rtol=1e-12, err_msg=at.name)
+                np.testing.assert_allclose(g, w, rtol=1e-12, err_msg=at.name)
             else:
-                assert np.array_equal(got, w, equal_nan=True), (fm.metric_type, at)
-        emitted[fm.metric_type.name] = int(fm.values.size)
+                assert np.array_equal(g, w, equal_nan=True), (fm.metric_type, at)
     assert set(emitted) == {"COUNTER", "GAUGE", "TIMER"}, emitted
 
     # where a hot-loop scrape's time goes: one more scrape of each type
@@ -535,25 +590,28 @@ def agg_drive(seed: int, n: int, dev, card: str, tag: str) -> dict:
             ml._route_windows(args[2])
             route.append(time.perf_counter() - t0)
         route_s = sorted(route)[1]
-        wall_s, busy_s = profiled(lambda: ml.add_batch_slots(mt, *args))
+        wall_s, busy_s, ops = profiled(lambda: ml.add_batch_slots(mt, *args))
         name = mt.name.lower()
         t[f"{name}_scrape_wall_ms"] = wall_s * 1e3
         t[f"{name}_scrape_host_routing_ms"] = route_s * 1e3
         t[f"{name}_scrape_device_busy_ms"] = busy_s * 1e3
         t[f"{name}_scrape_device_idle_share"] = 1 - busy_s / wall_s
+        t[f"{name}_scrape_device_ops"] = ops
     c = agg.counters()
-    log(f"{tag} n={n}: consume exact against the numpy oracle "
-        f"(stdev rtol 1e-12) for {emitted} rows; drops {c['drops']} "
-        f"(too early {n_bad} + too far {n_bad} per type)")
+    checked = ("exact against the numpy oracle (stdev rtol 1e-12)" if layout == "f64"
+               else "held against the f64 run below")
+    log(f"{tag} layout={layout or 'default'} n={n}: consume {checked} for {emitted} rows; "
+        f"drops {c['drops']} (too early {n_bad} + too far {n_bad} per type)")
     for key, v in t.items():
         if key != "n_series":
             log(f"{tag} [{card}] {key}: {v:,.3f}")
-    return t
+    return t, got
 
 
 def drain_encode_decode(seed: int, S: int, dev, card: str) -> None:
     """Phase 8: S gauges at 10 s raw under 1m:2d for 120 windows (2 h)
-    through the hot loop, each window consumed; the drained LAST values
+    through the hot loop on the default (packed) arena layout, each
+    window consumed; the drained LAST values
     become (S, 120) matrices (as tools/hops.py builds them) and go
     through encode and decode on the card."""
     import torch
@@ -567,7 +625,7 @@ def drain_encode_decode(seed: int, S: int, dev, card: str) -> None:
     T, k = 120, 6
     policy = StoragePolicy.parse("1m:2d")
     opts = te.AggregatorOptions(capacity=1 << 17, num_windows=2,
-                                timer_sample_capacity=1 << 10, layout="f64",
+                                timer_sample_capacity=1 << 10,
                                 storage_policies=(policy,))
     agg = te.Aggregator(num_shards=1, opts=opts, device=dev)
     ml = agg.shards[0].lists[policy]
@@ -619,6 +677,122 @@ def drain_encode_decode(seed: int, S: int, dev, card: str) -> None:
     log(f"phase8 drain -> encode -> decode: fallback share {share:.5f} "
         f"({int(fb.sum())} of {S}), {int(keep.sum())} series round-trip exactly "
         f"({time.perf_counter() - t0:.1f} s)")
+
+
+def cross_layout_check(packed: dict, f64: dict) -> dict:
+    """Phase 10: the packed layout's flushed values against the f64
+    run's, within the JAX package's cross-layout envelopes: counter
+    lanes, gauge COUNT/MIN/MAX/LAST and timer COUNT exact; gauge sums
+    and timer moments rtol 1e-6; timer values (min, max, quantiles)
+    f32-rounded, rel 1e-6; timer stdev, cancellation-amplified, rtol
+    1e-5.  Returns the largest relative difference per (type, agg type)."""
+    from m3_tpu_torch.metrics.aggregation import AggregationType as AT
+    from m3_tpu_torch.metrics.types import MetricType as MT
+
+    assert packed.keys() == f64.keys(), (sorted(packed), sorted(f64))
+    exact = {MT.COUNTER: set(AT), MT.GAUGE: {AT.COUNT, AT.MIN, AT.MAX, AT.LAST},
+             MT.TIMER: {AT.COUNT}}
+    worst = {}
+    for (mt, at), g in packed.items():
+        w = f64[mt, at]
+        key = f"{mt.name}.{at.name}"
+        if at in exact[mt]:
+            assert np.array_equal(g, w, equal_nan=True), key
+            worst[key] = 0.0
+            continue
+        rtol = 1e-5 if at is AT.STDEV else 1e-6
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=0, err_msg=key)
+        fin = np.isfinite(w) & (w != 0)
+        worst[key] = float((np.abs(g - w)[fin] / np.abs(w[fin])).max()) if fin.any() else 0.0
+    return worst
+
+
+def packed_card_vs_cpu(seed: int, n: int, m: int, dev, card: str) -> None:
+    """Phase 10, second part: the first m of phase 7's n series per type
+    (the same traffic, each scrape's permutation restricted to them)
+    through the default layout on the card and on the CPU, every state
+    field compared bit for bit (NaN as one NaN) after every scrape; then
+    a scrape with 64 duplicate ids per type, a counter batch with values
+    outside int16 (pool promotions), the next-window scrape with its
+    too-early and too-far samples, and consume, all compared the same
+    way."""
+    from m3_tpu_torch.aggregator import arena
+    from m3_tpu_torch.aggregator import engine as te
+    from m3_tpu_torch.metrics.policy import StoragePolicy
+    from m3_tpu_torch.metrics.types import MetricType as MT
+
+    data = agg_traffic(np.random.default_rng(seed), n)
+    kinds = agg_kinds()
+    policy = StoragePolicy.parse(AGG_POLICY)
+    opts = te.AggregatorOptions(capacity=1 << 20, num_windows=2,
+                                timer_sample_capacity=1 << 20, storage_policies=(policy,))
+    sides = [te.Aggregator(opts=opts, device=d) for d in (dev, "cpu")]
+    lists = [a.shards[0].lists[policy] for a in sides]
+    rng = np.random.default_rng(seed + 5)
+    compared = 0
+
+    def same(x, y) -> bool:
+        if x.dtype.kind != "f":
+            return np.array_equal(x, y)
+        ok = ~np.isnan(y)
+        return (np.array_equal(np.isnan(x), ~ok)
+                and np.array_equal(x[ok].view(np.uint64), y[ok].view(np.uint64)))
+
+    def compare(mt, what):
+        nonlocal compared
+        a, b = (arena.state_to_numpy(ml._arena(mt).state) for ml in lists)
+        for name in b:
+            assert same(a[name], b[name]), f"card != CPU: {mt.name}.{name} after {what}"
+        compared += 1
+
+    def both(mt, slots, vals, times, what):
+        for ml in lists:
+            ml.add_batch_slots(mt, slots, vals, times)
+        compare(mt, what)
+
+    bad_t = np.concatenate([np.full(10, T0_AGG - MINUTE),
+                            np.full(10, T0_AGG + 2 * MINUTE + 7 * SEC)])
+    for mt, (times, vals, perms, nxt_t, ids) in data.items():
+        sub = [p[p < m] for p in perms]
+        aid = kinds[mt][1]
+        for agg in sides:
+            agg.add_untimed_batch(mt, [ids[i] for i in sub[0]], vals[0, sub[0]],
+                                  times[0, sub[0]], aid)
+        compare(mt, "scrape 0")
+        slots = lists[0].maps[mt].resolve(ids[:m], aid, mt)
+        assert np.array_equal(slots, lists[1].maps[mt].resolve(ids[:m], aid, mt))
+        for j in range(1, vals.shape[0]):
+            p = sub[j]
+            both(mt, slots[p], vals[j, p], times[j, p], f"scrape {j}")
+        p = sub[1]
+        both(mt, with_dups(rng, slots[p], opts.capacity, 64), vals[1, p], times[1, p],
+             "a scrape with 64 duplicate ids")
+        if mt is MT.COUNTER:
+            big = vals[2, p].copy()
+            big[:1000] = np.where(np.arange(1000) % 2, 1.0, -1.0) * 2.0 ** 40
+            both(mt, slots[p], big, times[2, p], "a batch outside int16")
+            st = lists[0].counters.state
+            assert int(st.pool_n) == 1000 and int(st.err) == 0, (int(st.pool_n), int(st.err))
+        p = sub[-1]
+        bad = rng.integers(0, m, 20)
+        both(mt, np.concatenate([slots[p], slots[bad]]),
+             np.concatenate([vals[0, p], vals[0, bad]]),
+             np.concatenate([nxt_t[p], bad_t]), "the next-window scrape")
+    out = [agg.consume(T0_AGG + MINUTE) for agg in sides]
+    assert len(out[0]) == len(out[1]) == 3
+    rows = 0
+    for fa, fb in zip(*out):
+        assert fa.metric_type == fb.metric_type and fa.timestamp_nanos == fb.timestamp_nanos
+        assert np.array_equal(fa.slots, fb.slots) and np.array_equal(fa.types, fb.types)
+        assert same(fa.values, fb.values), f"card != CPU: flushed {fa.metric_type.name}"
+        rows += fa.values.size
+    for mt in data:
+        compare(mt, "consume")
+    assert sides[0].counters() == sides[1].counters()
+    log(f"phase10 [{card}] card == CPU bit for bit (NaN as one NaN) on {m} series per "
+        f"type: {compared} state comparisons, every field, after every scrape (64 "
+        f"duplicate ids per type; 1000 counter slots promoted into the pool, err 0; "
+        f"next-window scrape; consume), and {rows} flushed rows")
 
 
 def touched_bytes(idx, cols) -> int:
@@ -1032,7 +1206,7 @@ def main() -> int:
     t0 = time.perf_counter()
     segment_kernel_checks(args.seed, dev)
     log(f"phase6 done in {time.perf_counter() - t0:.1f} s")
-    agg_drive(args.seed + 7, 20_000, dev, card, "warm-up")  # lazy inits, same path
+    agg_drive(args.seed + 7, 20_000, dev, card, "warm-up", layout="f64")  # lazy inits
     seen_agg: dict = {}
     orig_agg = (si.segment_ingest_into, si.segment_minmax_into)
 
@@ -1050,7 +1224,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     for k in si.KERNELS:
         si.launches[k] = 0
-    agg_t = agg_drive(args.seed, args.agg_series, dev, card, "phase7")
+    agg_t, f64_got = agg_drive(args.seed, args.agg_series, dev, card, "phase7", layout="f64")
     agg_launches = dict(si.launches)
     agg_peak = torch.cuda.max_memory_allocated()
     si.segment_ingest_into, si.segment_minmax_into = orig_agg
@@ -1060,6 +1234,31 @@ def main() -> int:
     drain_encode_decode(args.seed + 3, args.drain_series, dev, card)
     kernels += segment_kernel_times(seen_agg, agg_launches, card)
     log(f"phase9 [{card}] aggregator: " + json.dumps(agg_t))
+
+    # ---- phases 10-11: the aggregator on the default (packed) layout ----
+    t0 = time.perf_counter()
+    agg_drive(args.seed + 7, 20_000, dev, card, "warm-up")  # lazy inits, same path
+    for k in si.KERNELS:
+        si.launches[k] = 0
+    encode_place.launches = decode_gather.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    packed_t, packed_got = agg_drive(args.seed, args.agg_series, dev, card, "phase10")
+    packed_peak = torch.cuda.max_memory_allocated()
+    launched = {**si.launches, "place_words": encode_place.launches,
+                "extract_fields64_t": decode_gather.launches}
+    log(f"phase10 launches of the four kernels on the packed path: {launched}")
+    assert not any(launched.values()), launched
+    worst = cross_layout_check(packed_got, f64_got)
+    log(f"phase10 consume == the f64 run of phase 7 within the cross-layout envelopes "
+        f"(largest relative difference per lane): " + json.dumps(worst))
+    del packed_got, f64_got
+    packed_card_vs_cpu(args.seed, args.agg_series, 1 << 16, dev, card)
+    log(f"phase10 done in {time.perf_counter() - t0:.1f} s")
+    for key, v in packed_t.items():
+        log(f"phase11 [{card}] {key}: f64 {agg_t[key]:,.3f} | packed {v:,.3f}")
+    log(f"phase11 [{card}] peak device memory: f64 {agg_peak / 2**30:.2f} GiB | "
+        f"packed {packed_peak / 2**30:.2f} GiB")
+    log(f"phase11 [{card}] aggregator, packed: " + json.dumps(packed_t))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

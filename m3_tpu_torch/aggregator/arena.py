@@ -24,7 +24,9 @@ included: the drop sentinels of the JAX package (``W*C``, ``C``,
 ``mode="drop"``.  The ``*_clear_slots`` functions wrap a negative slot
 as the reference does (see ``_clear_index``).
 
-Only the f64 layout is ported; ``make_arenas`` raises for the packed one.
+This is one of two layouts.  ``make_arenas`` builds the packed one
+(``packed.py``) by default, as the JAX package does, and this one for
+``layout="f64"``: the reference's parity oracle.
 """
 
 from __future__ import annotations
@@ -54,26 +56,36 @@ SCALAR_LANES = (
     AggregationType.STDEV,
 )
 
+LAYOUTS = ("packed", "f64", "auto")
+
+
 def resolve_layout_arg(layout: str | None) -> str:
-    """The one layout the port has is ``"f64"``.  ``None``, ``"auto"``
-    and ``"packed"`` (the JAX package's default) raise: the packed
-    layout is not ported yet, and nothing resolves silently to another
-    layout."""
-    if layout == "f64":
-        return layout
-    if layout in (None, "", "auto", "packed"):
-        raise NotImplementedError(
-            f"arena layout {layout!r}: the packed layout is not ported to "
-            "m3_tpu_torch yet; pass layout='f64'")
-    raise ValueError(f"unknown arena layout {layout!r}: must be 'f64'")
+    """A layout argument -> the concrete layout.  ``None``, ``""`` and
+    ``"auto"`` resolve to ``"packed"`` (the JAX package's default, which
+    it also reaches through its ``M3_ARENA_LAYOUT`` seam; the port has
+    no environment seam).  Anything but a known layout raises: a typo
+    must not silently select another layout."""
+    if not layout or layout == "auto":
+        return "packed"
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown arena layout {layout!r}: must be one of {LAYOUTS}")
+    return layout
 
 
 def make_arenas(num_windows: int, capacity: int, sample_capacity: int,
                 quantiles: tuple, timer_packed32: bool = False,
                 layout: str | None = None, device=None):
-    """(counter, gauge, timer) arenas on ``device`` (None = CUDA)."""
-    resolve_layout_arg(layout)
+    """(counter, gauge, timer) arenas of ``layout`` (None = packed) on
+    ``device`` (None = CUDA).  ``timer_packed32`` applies to the f64
+    timer only: the packed timer's words are f32-keyed already."""
     dev = resolve_device(device)
+    if resolve_layout_arg(layout) == "packed":
+        from m3_tpu_torch.aggregator import packed
+
+        return (packed.PackedCounterArena(num_windows, capacity, device=dev),
+                packed.PackedGaugeArena(num_windows, capacity, device=dev),
+                packed.PackedTimerArena(num_windows, capacity, sample_capacity,
+                                        quantiles, device=dev))
     return (CounterArena(num_windows, capacity, device=dev),
             GaugeArena(num_windows, capacity, device=dev),
             TimerArena(num_windows, capacity, sample_capacity, quantiles,
@@ -150,6 +162,16 @@ def decode_orderable_f32(bits):
     return b.to(torch.int32).view(torch.float32).to(torch.float64)
 
 
+def _sqrt(x):
+    """Correctly rounded f64 square root, as XLA's and the card's are.
+    PyTorch's vectorised CPU kernel is only within 1 ulp (it differs
+    from ``np.sqrt`` on ~0.7 % of random inputs, sqrt(2.0) among them),
+    so a CPU tensor goes through numpy."""
+    if x.device.type == "cpu":
+        return torch.as_tensor(np.sqrt(x.detach().numpy()))
+    return torch.sqrt(x)
+
+
 def _stdev(count, sum_sq, sum_):
     """Sample stdev from moments (reference aggregation/common.go:29-36),
     with ``count*sum_sq - sum^2`` clamped at 0: cancellation can round
@@ -157,7 +179,7 @@ def _stdev(count, sum_sq, sum_):
     div = count * (count - 1)
     num = torch.clamp(count * sum_sq - sum_ * sum_, min=0.0)
     return torch.where(div <= 0, 0.0,
-                       torch.sqrt(num / torch.where(div == 0, 1.0, div)))
+                       _sqrt(num / torch.where(div == 0, 1.0, div)))
 
 
 def _mean(s, cnt):
@@ -539,7 +561,6 @@ def timer_clear_slots(state: TimerState, slots, num_windows: int,
 # Weights and state carried across: the JAX state's fields <-> tensors.
 # ---------------------------------------------------------------------------
 
-_STATES = {"counter": CounterState, "gauge": GaugeState, "timer": TimerState}
 _FIELD_DTYPES = {
     "counter": dict.fromkeys(CounterState._fields, np.int64),
     "gauge": {**dict.fromkeys(GaugeState._fields, np.float64),
@@ -547,18 +568,39 @@ _FIELD_DTYPES = {
     "timer": {**dict.fromkeys(TimerState._fields, np.int64), "sum": np.float64,
               "sum_sq": np.float64, "sample_slot": np.int32,
               "sample_val": np.float64},
+    "packed_counter": {"base": np.uint64, "sq": np.int64, "minmax": np.uint32,
+                       "pool_cnt": np.int64, "pool_sum": np.int64, "pool_sq": np.int64,
+                       "pool_min": np.int64, "pool_max": np.int64,
+                       "pool_owner": np.int32, "pool_idx": np.int32,
+                       "pool_n": np.int32, "err": np.int32, "last_at": np.int64},
+    "packed_gauge": {"sum": np.float64, "sum_sq": np.float64, "count": np.int64,
+                     "min": np.float64, "max": np.float64, "last_bits": np.int64,
+                     "last_time": np.int64, "last_at": np.int64},
+    "packed_timer": {"sample": np.uint64, "sample_n": np.int64, "last_at": np.int64},
 }
 
 
+def _state_classes() -> dict:
+    from m3_tpu_torch.aggregator import packed
+
+    return {"counter": CounterState, "gauge": GaugeState, "timer": TimerState,
+            "packed_counter": packed.PackedCounterState,
+            "packed_gauge": packed.PackedGaugeState,
+            "packed_timer": packed.PackedTimerState}
+
+
 def state_from_numpy(kind: str, arrays: Mapping[str, np.ndarray], device=None):
-    """A ``kind`` ("counter", "gauge" or "timer") state on ``device`` from
-    the JAX state's fields as numpy arrays by name (``state._asdict()``).
-    Lossless, but for the sign of a NaN in a float ``max`` / ``min``
-    column, which becomes its side's (clear in ``max``, set in ``min``):
-    the ``segment_minmax`` kernel keeps only such a stored NaN sticky.
-    The JAX arenas store no NaN there.  Each field must already have the
-    JAX dtype."""
-    cls = _STATES[kind]
+    """A ``kind`` state on ``device`` from the JAX state's fields as numpy
+    arrays by name (``state._asdict()``).  Kinds: "counter", "gauge",
+    "timer" (f64 layout) and "packed_counter", "packed_gauge",
+    "packed_timer".  Each field must already have the JAX dtype.
+    Lossless: a uint64 field becomes the int64 tensor of the same bits,
+    a uint32 field (the packed ``minmax`` word) its int64 value.  For
+    the f64 layout only, a NaN in a float ``max`` / ``min`` column takes
+    its side's sign (clear in ``max``, set in ``min``): the
+    ``segment_minmax`` kernel keeps only such a stored NaN sticky.  The
+    JAX arenas store no NaN there."""
+    cls = _state_classes()[kind]
     dev = resolve_device(device)
     fields = {}
     for name in cls._fields:
@@ -566,18 +608,29 @@ def state_from_numpy(kind: str, arrays: Mapping[str, np.ndarray], device=None):
         want = _FIELD_DTYPES[kind][name]
         if a.dtype != want:
             raise TypeError(f"{kind}.{name}: want {np.dtype(want)}, got {a.dtype}")
-        if a.dtype == np.float64 and name in ("max", "min"):
+        if kind in ("counter", "gauge") and a.dtype == np.float64 and name in ("max", "min"):
             sign = np.uint64(1 << 63)
             bits = a.view(np.uint64)
             a = np.where(np.isnan(a), bits | sign if name == "min" else bits & ~sign,
                          bits).view(np.float64)
+        if a.dtype == np.uint64:
+            a = a.view(np.int64)
+        elif a.dtype == np.uint32:
+            a = a.astype(np.int64)
         fields[name] = torch.tensor(a, device=dev)
     return cls(**fields)
 
 
 def state_to_numpy(state) -> dict:
-    """The state's fields as numpy arrays by name (lossless)."""
-    return {name: t.cpu().numpy() for name, t in state._asdict().items()}
+    """The state's fields as numpy arrays by name, in the JAX dtypes
+    (lossless; the inverse of ``state_from_numpy``)."""
+    kind = next(k for k, c in _state_classes().items() if isinstance(state, c))
+    out = {}
+    for name, t in state._asdict().items():
+        a = t.detach().cpu().numpy().copy()
+        want = _FIELD_DTYPES[kind][name]
+        out[name] = a.view(np.uint64) if want == np.uint64 else a.astype(want, copy=False)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,7 @@
 """Aggregator engine: host control plane over the device arenas.  The
-counterpart of ``m3_tpu/aggregator/engine.py``, on the f64 arenas.
+counterpart of ``m3_tpu/aggregator/engine.py``, on either arena layout
+(packed by default, as in the JAX package; ``layout="f64"`` for the
+scatter-semantics oracle).
 
 Re-design of the reference's object-per-metric engine
 (``src/aggregator/aggregator/aggregator.go:263`` AddUntimed →
@@ -42,7 +44,7 @@ from m3_tpu_torch.metrics.types import MetricType
 class AggregatorOptions:
     """Sizing knobs (reference aggregator/options.go, collapsed to the
     arena geometry that matters on device).  Same fields and defaults as
-    the JAX package's; the port runs only ``layout="f64"``."""
+    the JAX package's."""
 
     capacity: int = 1 << 20  # metric slots per type per shard
     num_windows: int = 2  # ring of open resolution windows
@@ -52,8 +54,10 @@ class AggregatorOptions:
     # orderable-f32) key; quantile/min/max lanes then carry f32
     # precision, moments stay f64-exact (see arena.timer_consume).
     timer_packed32: bool = False
-    # Arena layout: only "f64" (the scatter-semantics arenas) is ported;
-    # None / "auto" / "packed" raise NotImplementedError.
+    # Arena layout: None / "auto" / "packed" build the packed arenas (the
+    # default), "f64" the scatter-semantics arenas; anything else raises
+    # ValueError (arena.resolve_layout_arg).  timer_packed32 applies to
+    # the f64 timer.
     layout: str | None = None
     storage_policies: tuple = (StoragePolicy.parse("10s:2d"),)
     # New-metric creation rate cap (0 = unlimited); the limiter is not

@@ -215,12 +215,23 @@ def test_murmur3_and_policies_match_jax():
 
 
 def test_unported_options_raise():
+    """The layouts: None, "auto" and "packed" build the packed arenas, an
+    unknown layout raises ValueError.  Then the options still unported
+    raise, and passthrough without a handler."""
+    from m3_tpu_torch.aggregator import packed as tp
+
     pols = (tpol.StoragePolicy.parse("10s:2d"),)
     for layout in (None, "auto", "packed"):
-        with pytest.raises(NotImplementedError, match="layout='f64'"):
-            te.Aggregator(opts=te.AggregatorOptions(capacity=8, layout=layout,
-                                                    storage_policies=pols),
-                          device="cpu")
+        agg = te.Aggregator(opts=te.AggregatorOptions(capacity=8, layout=layout,
+                                                      storage_policies=pols),
+                            device="cpu")
+        ml = agg.shards[0].lists[pols[0]]
+        assert isinstance(ml.counters, tp.PackedCounterArena), layout
+        assert isinstance(ml.gauges, tp.PackedGaugeArena), layout
+        assert isinstance(ml.timers, tp.PackedTimerArena), layout
+    with pytest.raises(ValueError, match="unknown arena layout"):
+        te.Aggregator(opts=te.AggregatorOptions(capacity=8, layout="packd",
+                                                storage_policies=pols), device="cpu")
     with pytest.raises(NotImplementedError, match="limiter"):
         te.Aggregator(opts=te.AggregatorOptions(capacity=8, layout="f64",
                                                 new_series_limit_per_sec=5.0),

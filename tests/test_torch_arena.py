@@ -337,9 +337,14 @@ def test_timer_arena_grow_matches_jax():
 
 
 def test_arena_classes_and_layouts():
+    from m3_tpu_torch.aggregator import packed as tp
+
     for layout in (None, "auto", "packed"):
-        with pytest.raises(NotImplementedError, match="layout='f64'"):
-            ta.make_arenas(2, 8, 8, (0.5,), layout=layout, device="cpu")
+        c, g, t = ta.make_arenas(2, 8, 8, (0.5, 0.99), layout=layout, device="cpu")
+        jc, jg, jt = ja.make_arenas(2, 8, 8, (0.5, 0.99), layout="packed")
+        assert type(c) is tp.PackedCounterArena and type(jc).__name__ == "PackedCounterArena"
+        assert type(g) is tp.PackedGaugeArena and type(t) is tp.PackedTimerArena
+        assert t.lane_types == jt.lane_types and c.lane_types == jc.lane_types
     with pytest.raises(ValueError):
         ta.make_arenas(2, 8, 8, (0.5,), layout="magic", device="cpu")
     c, g, t = ta.make_arenas(2, 8, 8, (0.5, 0.99), layout="f64", device="cpu")

@@ -250,12 +250,12 @@ def test_ingest_scratch_per_stream_and_graph_capture():
             si.segment_ingest_into(*got, idx, vals)
 
 
-def _agg_drive(device):
+def _agg_drive(device, layout="f64"):
     """A few windows of counters, gauges and timers through the engine;
     the flushed output keyed by (policy, type, id, agg type, time)."""
     rng = np.random.default_rng(23)
     opts = te.AggregatorOptions(
-        capacity=512, num_windows=2, timer_sample_capacity=256, layout="f64",
+        capacity=512, num_windows=2, timer_sample_capacity=256, layout=layout,
         storage_policies=(StoragePolicy.parse("10s:2d"), StoragePolicy.parse("1m:40d")))
     agg = te.Aggregator(opts=opts, device=device)
     out = {}
@@ -298,3 +298,76 @@ def test_aggregator_on_card_equals_cpu():
                                        err_msg=str(k))
         else:
             np.testing.assert_array_equal(card[k], want, err_msg=str(k))
+
+
+@pytest.mark.gpu
+def test_packed_aggregator_on_card_equals_cpu():
+    """The default (packed) layout: every flushed value bit-equal between
+    the card and the CPU (every op is an integer op or IEEE f64
+    arithmetic in its own launch), and none of the four kernels runs."""
+    dev = _cuda_or_skip()
+    before = dict(si.launches)
+    card, card_counters = _agg_drive(dev, layout=None)
+    assert si.launches == before
+    cpu, cpu_counters = _agg_drive("cpu", layout=None)
+    assert set(card) == set(cpu) and len(cpu) > 1000 and card_counters == cpu_counters
+    for k, want in cpu.items():
+        np.testing.assert_array_equal(card[k], want, err_msg=str(k))
+
+
+@pytest.mark.gpu
+def test_packed_arena_states_on_card_equal_cpu():
+    """Packed counter, gauge and timer arenas driven with the same
+    batches on the card and on the CPU (out-of-range windows and slots,
+    NaN/±inf/±0 gauges, duplicate slots, values outside int16 that
+    promote into a narrow pool, clears with negative slots, resets):
+    every state field bit-equal (NaN as one NaN) after every op."""
+    from m3_tpu_torch.aggregator import arena
+    from m3_tpu_torch.aggregator import packed as tp
+
+    dev = _cuda_or_skip()
+    W, C = 2, 1000
+    rng = np.random.default_rng(31)
+    pairs = [(tp.PackedCounterArena(W, C, pool_capacity=64, widths=(8, 20), device=d),
+              tp.PackedGaugeArena(W, C, device=d), tp.PackedTimerArena(W, C, 64, device=d))
+             for d in (dev, "cpu")]
+
+    def same(what):
+        for a, b in zip(*pairs):
+            x, y = arena.state_to_numpy(a.state), arena.state_to_numpy(b.state)
+            for name in y:
+                if y[name].dtype.kind == "f":
+                    ok = ~np.isnan(y[name])
+                    np.testing.assert_array_equal(np.isnan(x[name]), ~ok, err_msg=what)
+                    np.testing.assert_array_equal(x[name][ok].view(np.uint64),
+                                                  y[name][ok].view(np.uint64), err_msg=what)
+                else:
+                    np.testing.assert_array_equal(x[name], y[name], err_msg=f"{what} {name}")
+
+    for i in range(6):
+        n = int(rng.integers(1, 5000))
+        w = rng.integers(-1, W + 1, n).astype(np.int32)
+        s = rng.integers(-2, C + 2, n).astype(np.int32)
+        s[: n // 3] = rng.integers(0, 20, n // 3)  # hot, duplicate slots
+        cv = rng.integers(-3000, 3000, n).astype(np.float64)
+        cv[rng.random(n) < 0.01] = 2.0 ** 41
+        gv = np.round(rng.normal(0, 9, n), 2)
+        for val, p in ((np.nan, 0.02), (np.inf, 0.01), (-np.inf, 0.01), (-0.0, 0.05)):
+            gv[rng.random(n) < p] = val
+        t = START + rng.integers(0, 50, n) * SEC
+        for c, g, tm in pairs:
+            c.ingest(w, s, cv, t)
+            g.ingest(w, s, gv, t)
+            tm.ingest(w, s, np.abs(np.nan_to_num(gv, posinf=7.0, neginf=-7.0)), t)
+        same(f"ingest {i}")
+        if i == 3:
+            clear = np.asarray([-1, 5, 17, C - 1, -C - 2], np.int32)
+            for arenas in pairs:
+                for a in arenas:
+                    a.clear_slots(clear)
+            same("clear")
+    assert int(pairs[1][0].state.pool_n) > 0
+    for arenas in pairs:
+        for a in arenas:
+            a.reset_window(0)
+    same("reset")
