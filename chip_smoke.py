@@ -76,7 +76,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    through the entry point and the hot loop, one profiled scrape per
    type (wall, host routing, device busy, idle share, device kernels
    and copies launched), consume split into device lanes and host
-   ``_emit``, peak device memory.
+   ``_emit``, peak device memory;
+12. the PromQL query path at BASELINE config #5's full width: 12,500
+   groups x 8 ``le`` buckets = 100,000 cumulative counters, 261 samples
+   at 15 s (the JAX bench's generator), ``histogram_quantile(0.99,
+   rate(m3_req_bucket[5m]))`` over 1 h at 15 s steps (241) through the
+   port's engine on the card under both precision policies; sampled
+   groups against scalar Prometheus oracles (rtol 1e-6 for f64, 5e-3 for
+   f32) and the first 512 groups against the port's CPU run (rtol 1e-12
+   and 1e-5); eval wall (best of 3 after a warm-up), its host split
+   (exclusive rows that add up to the wall), the raw block's uploads
+   timed on the card with CUDA events and, from a torch.profiler trace,
+   the union of the other kernel and copy intervals: their sum is device
+   busy; idle share (against the profiled wall, which the profiler
+   lengthens, and against the best unprofiled wall) and device ops; then one
+   query per temporal family and device function over the full block
+   (time and peak memory) and on the first 256 groups card against CPU
+   (exact, or the prefix-sum bounds of ``family_bound``);
+13. bytes to quantiles: phase 12's counters encoded on the card (fallback
+   share under 5 %), then ``decode_rate_hq``: decoded timestamps and
+   value bits equal to the codec's host path (and to the generated
+   values but for the few M3TSZ snaps to a decimal, a few ulp each), rates
+   equal to the engine's f64 ``rate`` over the decoded samples bit for
+   bit, hq equal to the engine's ``histogram_quantile(0.99, sum by (le)
+   (rate(...)))`` within rtol 1e-12; kernel #2 must launch, and its own
+   outputs on this path (100,000 streams x 262 points) must equal its
+   plain version on the same inputs bit for bit; its time there, and the
+   pipeline's (best of 3) and profile.
 
 The last three lines are a JSON line of kernel records, the card's name
 and power limit, and the result line ``{"ok": true, "device": {...}}``.
@@ -253,19 +279,25 @@ def max_ulp(a, b) -> int:
     return int(d.max()) if d.numel() else 0
 
 
-def profiled(fn, tries: int = 3):
-    """(wall s, device busy s, device ops) of ``fn`` run once under
-    torch.profiler: the wall clock around it ends in a synchronize; busy
-    time is the sum of the device's own kernel and copy times from the
-    trace, and device ops the number of those kernels and copies.  The
-    profiler's host-side recording makes the wall time a little longer
-    than unprofiled.  A trace with no device events at all (the
-    profiler drops one now and then) is taken again, ``fn`` included,
-    up to ``tries`` times."""
+def profiled(fn, tries: int = 3) -> dict:
+    """``fn`` run once under torch.profiler: ``wall_s`` (the wall clock
+    around it, ending in a synchronize; the profiler's host-side
+    recording makes it a little longer than unprofiled), ``busy_s`` (the
+    union of the device's own kernel, copy and memset intervals in the
+    trace), ``ops`` (the number of those), and ``busy_no_htod_s`` /
+    ``ops_no_htod`` / ``htod_s`` / ``htod_bytes``: the union and the
+    count without the host-to-device copies, and those copies' time and
+    bytes.  The profiler drops large
+    pageable host-to-device copies from some traces (seen on the H100
+    with config #5's 209 MB uploads), so a caller that uploads much
+    times its copies with CUDA events and adds them to
+    ``busy_no_htod_s``.  A trace with no device events at all is taken
+    again, ``fn`` included, up to ``tries`` times."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    trace = ROOT / "build" / "profile_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
     for attempt in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -273,17 +305,40 @@ def profiled(fn, tries: int = 3):
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        busy_us = 0.0
-        ops = 0
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA:
-                busy_us += getattr(e, "self_device_time_total",
-                                   getattr(e, "self_cuda_time_total", 0.0))
-                ops += e.count
-        if busy_us > 0:
-            return wall, busy_us * 1e-6, ops
+        prof.export_chrome_trace(str(trace))
+        with open(trace) as fh:
+            events = json.load(fh)["traceEvents"]
+        trace.unlink()
+        spans, rest = [], []
+        htod_us = 0.0
+        htod = 0
+        for e in events:
+            if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+                continue
+            span = (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+            spans.append(span)
+            if e["cat"] == "gpu_memcpy" and "HtoD" in e.get("name", ""):
+                htod_us += float(e["dur"])
+                htod += int(e.get("args", {}).get("bytes", 0))
+            else:
+                rest.append(span)
+        if spans:
+            return {"wall_s": wall, "busy_s": _union_us(spans) * 1e-6, "ops": len(spans),
+                    "busy_no_htod_s": _union_us(rest) * 1e-6, "ops_no_htod": len(rest),
+                    "htod_s": htod_us * 1e-6, "htod_bytes": htod}
         log(f"profiled: trace {attempt + 1} of {tries} holds no device events; again")
     raise AssertionError("the profiler saw no device time")
+
+
+def _union_us(spans) -> float:
+    """Length of the union of (start, end) intervals."""
+    total = 0.0
+    end = -np.inf
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
 
 
 def start_columns(rng, C: int, dtype):
@@ -590,7 +645,8 @@ def agg_drive(seed: int, n: int, dev, card: str, tag: str, layout=None):
             ml._route_windows(args[2])
             route.append(time.perf_counter() - t0)
         route_s = sorted(route)[1]
-        wall_s, busy_s, ops = profiled(lambda: ml.add_batch_slots(mt, *args))
+        prof = profiled(lambda: ml.add_batch_slots(mt, *args))
+        wall_s, busy_s, ops = prof["wall_s"], prof["busy_s"], prof["ops"]
         name = mt.name.lower()
         t[f"{name}_scrape_wall_ms"] = wall_s * 1e3
         t[f"{name}_scrape_host_routing_ms"] = route_s * 1e3
@@ -990,6 +1046,619 @@ def segment_kernel_times(seen: dict, launches: dict, card: str) -> list:
     ]
 
 
+# ---- phases 12-13: the PromQL query path (BASELINE config #5) ----
+
+PROMQL_GROUPS, PROMQL_BUCKETS = 12_500, 8  # 100,000 series, as the JAX bench
+PROMQL_START = 1_600_000_000 * SEC
+PROMQL_STEP = 15 * SEC
+PROMQL_RANGE = 3600 * SEC  # the 1 h query window
+RATE_WIN = 5 * 60 * SEC  # rate(...[5m])
+HQ_QUERY = "histogram_quantile(0.99, rate(m3_req_bucket[5m]))"
+FINITE_UBS = (b"0.005", b"0.05", b"0.5", b"1", b"2.5", b"5", b"10")
+# card against the port's own CPU run: the same elementwise ops on both
+# (each rounded once), so config #5's rate and histogram_quantile agree
+# but for reduction and scan orders
+CARD_VS_CPU_RTOL = {"f64": 1e-12, "f32": 1e-5}
+# the per-family queries of phase 12, each held card against CPU on a
+# slice; the kind names the tolerance (see family_bound)
+FAMILY_QUERIES = (
+    ("sum_over_time(m3_req_bucket[5m])", "prefix"),
+    ("stddev_over_time(m3_req_bucket[5m])", "prefix_sq"),
+    ("quantile_over_time(0.9, m3_req_bucket[5m])", "exact"),
+    ("max_over_time(m3_req_bucket[5m])", "exact"),
+    ("irate(m3_req_bucket[5m])", "exact"),
+    ("deriv(m3_req_bucket[5m])", "regression"),
+    ("resets(m3_req_bucket[5m])", "exact"),
+    ("holt_winters(m3_req_bucket[5m], 0.3, 0.6)", "exact"),
+    ("topk by (group) (3, rate(m3_req_bucket[5m]))", "exact"),
+    ("quantile by (le) (0.5, rate(m3_req_bucket[5m]))", "exact"),
+    ("sum_over_time(m3_req_bucket[5m]) / on (group, le) count_over_time(m3_req_bucket[5m])",
+     "prefix"),
+)
+
+
+def promql_corpus(seed: int, G: int, B: int):
+    """BASELINE config #5's data, as the JAX package's bench generates it
+    (``bench.py`` ``_run_promql_bench``; seed 0 gives its data): G groups
+    x B ``le`` buckets of cumulative counters, P = 261 samples at 15 s
+    (the 1 h window plus the 5 m rate range), gamma increments at a
+    per-series scale, a mid-stream reset in 0.1 % of the series, and
+    per-bucket mass decaying geometrically, cumulated across the buckets.
+    Returns (ts (S, P), vals (S, P), the upper-bound labels)."""
+    rng = np.random.default_rng(11 + seed)
+    P = (PROMQL_RANGE + RATE_WIN) // PROMQL_STEP + 1
+    S = G * B
+    ts = np.ascontiguousarray(np.broadcast_to(
+        PROMQL_START + np.arange(P, dtype=np.int64) * PROMQL_STEP, (S, P)))
+    scale = rng.uniform(0.5, 20.0, (S, 1))
+    incr = rng.gamma(2.0, scale, (S, P))
+    vals = np.cumsum(incr, axis=1)
+    resets = rng.integers(0, S, max(S // 1000, 1))
+    vals[resets, P // 2:] = np.cumsum(incr[resets, P // 2:], axis=1)
+    decay = rng.uniform(0.3, 0.7, (G, 1, 1)) ** np.arange(B)[None, :, None]
+    vals = (vals.reshape(G, B, P) * decay).cumsum(axis=1).reshape(S, P)
+    return ts, vals, list(FINITE_UBS[:B - 1]) + [b"+Inf"]
+
+
+class BlockStorage:
+    """The engine's storage over one in-memory raw block (the JAX bench's
+    ``_ArrayStorage``): every selector of the metric gets the whole
+    block."""
+
+    def __init__(self, raw, name: bytes = b"m3_req_bucket"):
+        self.raw = raw
+        self.name = name
+
+    def fetch_raw(self, name, matchers, start_nanos, end_nanos):
+        assert name == self.name and not matchers, (name, matchers)
+        return self.raw
+
+
+def raw_block(ts, vals, ub_labels, rows):
+    """The corpus rows ``rows`` (an index array) as the port's RawBlock;
+    row i is bucket ``i % B`` of group ``i // B``."""
+    from m3_tpu_torch.query.block import RawBlock, SeriesMeta
+
+    B = len(ub_labels)
+    series = [SeriesMeta(((b"__name__", b"m3_req_bucket"), (b"group", b"g%06d" % (i // B)),
+                          (b"le", ub_labels[i % B]))) for i in rows.tolist()]
+    return RawBlock(ts[rows], vals[rows], np.full(len(rows), ts.shape[1], np.int64), series)
+
+
+def oracle_rate(ts_row, vals_row, step_times, range_nanos):
+    """Naive scalar Prometheus rate() (a copy of bench.py's
+    ``_promql_oracle_rate``): (t-range, t] window, counter-reset
+    correction, edge extrapolation capped at avg/2 and at the zero
+    crossing."""
+    out = np.full(len(step_times), np.nan)
+    rng_s = range_nanos / 1e9
+    for j, t_eval in enumerate(step_times):
+        w0 = t_eval - range_nanos
+        sel = np.nonzero((ts_row > w0) & (ts_row <= t_eval))[0]
+        if sel.size < 2:
+            continue
+        t = ts_row[sel].astype(np.float64)
+        v = vals_row[sel].astype(np.float64)
+        adj = v.copy()
+        add = 0.0
+        for k in range(1, len(v)):
+            if v[k] < v[k - 1]:
+                add += v[k - 1]
+            adj[k] = v[k] + add
+        delta = adj[-1] - adj[0]
+        sampled = t[-1] - t[0]
+        if sampled <= 0:
+            continue
+        avg = sampled / (len(v) - 1)
+        dur_start = t[0] - w0
+        dur_end = t_eval - t[-1]
+        ex_s = dur_start if dur_start < avg * 1.1 else avg / 2.0
+        ex_e = dur_end if dur_end < avg * 1.1 else avg / 2.0
+        if delta > 0 and v[0] >= 0:
+            ex_s = min(ex_s, sampled * (v[0] / delta))
+        out[j] = delta * (sampled + ex_s + ex_e) / sampled / rng_s
+    return out
+
+
+def oracle_hq(ubs, rates, q):
+    """Naive scalar Prometheus histogram_quantile over cumulative bucket
+    rates (a copy of bench.py's ``_promql_oracle_hq``)."""
+    if np.isnan(rates).any():
+        return np.nan
+    total = rates[-1]
+    if total == 0 or not np.isinf(ubs[-1]):
+        return np.nan
+    rank = q * total
+    b = int(np.searchsorted(rates, rank, side="left"))
+    if b >= len(ubs) - 1:
+        return ubs[-2]
+    lo = 0.0 if (b == 0 and ubs[0] > 0) else (ubs[b - 1] if b > 0 else ubs[0])
+    if b == 0 and ubs[0] <= 0:
+        return ubs[0]
+    prev = rates[b - 1] if b > 0 else 0.0
+    width = rates[b] - prev
+    if width <= 0:
+        return ubs[b]
+    return lo + (ubs[b] - lo) * (rank - prev) / width
+
+
+def zero_launches() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from m3_tpu_torch.parallel import decode_gather, encode_place
+    from m3_tpu_torch.parallel import segment_ingest as si
+
+    encode_place.launches = decode_gather.launches = 0
+    for k in si.KERNELS:
+        si.launches[k] = 0
+
+
+def read_launches() -> dict:
+    """Every kernel wrapper's launch count, by kernel name."""
+    from m3_tpu_torch.parallel import decode_gather, encode_place
+    from m3_tpu_torch.parallel import segment_ingest as si
+
+    return {**si.launches, "place_words": encode_place.launches,
+            "extract_fields64_t": decode_gather.launches}
+
+
+class HostClock:
+    """Host seconds spent in named callables, by wrapping them in place
+    for one run (``restore`` puts them back).  Each key gets its own
+    (exclusive) time: a wrapped call inside another is taken out of the
+    outer one's, so the keys add up to no more than the run's wall."""
+
+    def __init__(self):
+        self.s: dict = {}
+        self.calls: dict = {}
+        self._inner = [0.0]  # time of wrapped calls nested in the open one
+        self._undo: list = []
+
+    def wrap(self, owner, attr: str, key: str) -> None:
+        fn = getattr(owner, attr)
+
+        def timed(*a, **kw):
+            self._inner.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                self.s[key] = self.s.get(key, 0.0) + dt - self._inner.pop()
+                self.calls[key] = self.calls.get(key, 0) + 1
+                self._inner[-1] += dt
+
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, fn))
+
+    def restore(self) -> None:
+        for owner, attr, fn in reversed(self._undo):
+            setattr(owner, attr, fn)
+        self._undo.clear()
+
+
+class KernelCheck:
+    """Within ``with``, every call of ``owner.attr`` (a kernel wrapper as
+    its caller looks it up) runs as before, and its output is then held
+    against ``plain`` on the same inputs, bit for bit; the comparison
+    runs no kernel, so it adds nothing to the launch counts.  The last
+    call's inputs are kept, to time the kernel on them."""
+
+    def __init__(self, owner, attr: str, plain):
+        self.owner, self.attr, self.plain = owner, attr, plain
+        self.calls = 0
+        self.err = 0
+        self.args = None
+
+    def __enter__(self):
+        import torch
+
+        fn = self.fn = getattr(self.owner, self.attr)
+
+        def checked(*a):
+            out = fn(*a)
+            want = self.plain(*a)
+            self.err = max(self.err, int((out ^ want).abs().max()) if out.numel() else 0)
+            assert torch.equal(out, want), f"{self.attr} kernel != plain on the path's inputs"
+            self.calls += 1
+            self.args = a
+            return out
+
+        setattr(self.owner, self.attr, checked)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attr, self.fn)
+        return False
+
+    def summary(self, *others) -> dict:
+        """Calls and largest bit difference (this and ``others``), and the
+        kernel's, its plain version's and its bound's times on the last
+        call's inputs (rows of ``extract_fields64_t``: each input read once,
+        the output written once)."""
+        calls = self.calls + sum(o.calls for o in others)
+        assert self.calls > 0 and all(o.calls > 0 for o in others), "the kernel was not called"
+        words_t, offs, widths = self.args
+        nbytes = offs.numel() * (4 + 4 + 8) + words_t.numel() * 8
+        return {"ext_calls": calls,
+                "ext_max_abs_err": max([self.err] + [o.err for o in others]),
+                "ext_words_shape": list(words_t.shape), "ext_lanes_shape": list(offs.shape),
+                "ext_ms": cuda_ms(lambda: self.fn(*self.args)),
+                "ext_plain_ms": cuda_ms(lambda: self.plain(*self.args)),
+                "ext_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+# (owner module or class name, attribute, row of the host split)
+QUERY_HOST_ROWS = (
+    ("engine", "parse", "parse"),
+    ("Engine", "_fetch", "fetch"),
+    ("Engine", "_dev", "upload"),
+    ("SeriesMeta", "drop_name", "drop_name"),
+    ("temporal", "rate_family", "rate_launch"),
+    ("Engine", "_eval_temporal", "rate_stage_rest"),
+    ("functions", "histogram_quantile", "hq_tag_grouping"),
+    ("device_fns", "histogram_quantile_groups", "hq_gather_plan"),
+    ("device_fns", "_histogram_quantile_kernel", "hq_launch"),
+    ("Block", "materialized", "materialize"),
+)
+
+
+def query_host_split(run) -> dict:
+    """One run of ``run`` with the engine's host stages timed, each row
+    exclusive of the others: parse; the storage fetch; the uploads
+    (``Engine._dev``: the raw block's ts and values, the steps); the
+    per-series ``drop_name``; the rate stencil's launches; the rest of
+    the rate stage (the device ``nan_to_num`` and cast launches);
+    histogram_quantile's tag grouping of the series; its gather plan;
+    its launches; the copy to the host (which waits for the device); and
+    ``other``, the wall left over (the engine's dispatch, and the
+    clock's own cost on the ~10^5 ``drop_name`` calls).  Also the
+    uploads' time on the card, from CUDA events around each."""
+    from m3_tpu_torch.query import block, device_fns, functions, temporal
+    from m3_tpu_torch.query import engine as qe
+
+    import torch
+
+    owners = {"engine": qe, "Engine": qe.Engine, "SeriesMeta": block.SeriesMeta,
+              "temporal": temporal, "functions": functions, "device_fns": device_fns,
+              "Block": block.Block}
+    # CUDA events around each upload: the copies' own time on the card
+    dev_fn = qe.Engine._dev
+    marks: list = []
+
+    def dev_timed(*a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = dev_fn(*a, **kw)
+        ev[1].record()
+        marks.append(ev)
+        return out
+
+    qe.Engine._dev = dev_timed
+    hc = HostClock()
+    try:
+        for owner, attr, key in QUERY_HOST_ROWS:
+            hc.wrap(owners[owner], attr, key)
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    finally:
+        hc.restore()
+        qe.Engine._dev = dev_fn
+    torch.cuda.synchronize()
+    rows = {f"{key}_ms": hc.s.get(key, 0.0) * 1e3 for _, _, key in QUERY_HOST_ROWS}
+    return {"wall_ms": wall * 1e3, **rows, "other_ms": wall * 1e3 - sum(rows.values()),
+            "drop_name_calls": hc.calls.get("drop_name", 0),
+            "uploads": len(marks),
+            "upload_copies_device_ms": sum(a.elapsed_time(b) for a, b in marks)}
+
+
+def rel_err(a, b) -> float:
+    """Largest |a - b| / |b| where b is finite and non-zero (NaN places
+    must agree; checked by the caller)."""
+    ok = np.isfinite(b) & (b != 0)
+    return float((np.abs(a[ok] - b[ok]) / np.abs(b[ok])).max()) if ok.any() else 0.0
+
+
+def family_bound(kind: str, raw, steps, out):
+    """Per-row absolute tolerance of a card-vs-CPU comparison: exact (0)
+    where both devices run the same elementwise ops, selections and
+    sorts; for the prefix-difference families the card's parallel
+    ``cumsum`` rounds differently from the CPU's sequential one, so 64
+    eps64 of the row's largest prefix of |v| (sum/avg), the square root
+    of 64 eps64 x max|v| x that prefix (stddev), or that error carried
+    through the regression's first-order sensitivities (deriv)."""
+    eps = float(np.finfo(np.float64).eps)
+    v = raw.values
+    pref = np.abs(v).cumsum(axis=1).max(axis=1, keepdims=True)
+    if kind == "exact":
+        return np.zeros((len(v), 1))
+    if kind == "prefix":
+        return 64 * eps * pref
+    if kind == "prefix_sq":
+        return np.sqrt(64 * eps * np.abs(v).max(axis=1, keepdims=True) * pref)
+    # regression: window sums of v, t, t*v, t^2, each off by 64 eps of its
+    # largest prefix, through the slope's sensitivities
+    ts = raw.ts
+    tsec = (ts - steps[0]).astype(np.float64) / 1e9
+    ref = (steps - steps[0]).astype(np.float64)[None, :] / 1e9
+    lo = np.stack([np.searchsorted(r, steps - RATE_WIN, side="right") for r in ts])
+    hi = np.stack([np.searchsorted(r, steps, side="right") for r in ts])
+
+    def wsum(x):
+        c = np.concatenate([np.zeros((len(x), 1)), np.cumsum(x, axis=1)], axis=1)
+        return (np.take_along_axis(c, hi, 1) - np.take_along_axis(c, lo, 1),
+                64 * eps * np.abs(x).cumsum(axis=1).max(axis=1, keepdims=True))
+
+    (Sv, Ev), (St, Et), (Stv, Etv), (Stt, Ett) = (
+        wsum(v), wsum(tsec), wsum(tsec * v), wsum(tsec * tsec))
+    n = (hi - lo).astype(np.float64)
+    Stc = St - n * ref
+    D = n * (Stt - 2 * ref * St + n * ref * ref) - Stc * Stc
+    with np.errstate(all="ignore"):
+        slope = np.nan_to_num(out)
+        b = 2 * (n * Etv + np.abs(n * ref + Stc) * Ev
+                 + np.abs(Sv + slope * (2 * n * ref + 2 * Stc)) * Et
+                 + np.abs(slope) * n * Ett) / np.abs(D)
+    return np.nan_to_num(b, nan=np.inf)
+
+
+def promql_config5(seed: int, G: int, B: int, dev, card: str) -> dict:
+    """Phase 12: BASELINE config #5 at full width through the port's
+    engine on the card, under both precision policies; then one query per
+    temporal family and device function.  Returns the times and the f64
+    block of ``rate``, for phase 13."""
+    import torch
+
+    from m3_tpu_torch.query import engine as qe
+    from m3_tpu_torch.query import precision
+
+    ts, vals, ub_labels = promql_corpus(seed, G, B)
+    S, P = ts.shape
+    raw = raw_block(ts, vals, ub_labels, np.arange(S))
+    eng = qe.Engine(BlockStorage(raw), device=dev)
+    q_start = PROMQL_START + RATE_WIN
+    q_end = q_start + PROMQL_RANGE
+    steps = np.arange(q_start, q_end + 1, PROMQL_STEP, dtype=np.int64)
+    T = len(steps)
+    log(f"phase12 data: G={G} groups x B={B} buckets = {S} series, P={P} samples at 15 s, "
+        f"T={T} steps; query {HQ_QUERY}")
+    run = lambda: eng.execute_range(HQ_QUERY, q_start, q_end, PROMQL_STEP)
+    ubs = np.array([np.inf if u == b"+Inf" else float(u) for u in ub_labels])
+    check_groups = np.random.default_rng(seed + 5).choice(G, 6, replace=False)
+    n_cpu = min(512, G)
+    cpu_eng = qe.Engine(BlockStorage(raw_block(ts, vals, ub_labels, np.arange(n_cpu * B))),
+                        device="cpu")
+    times: dict = {}
+    for policy in ("f64", "f32"):
+        precision.set_compute_dtype(policy)
+        try:
+            t0 = time.perf_counter()
+            blk = run()  # warm-up
+            warm_s = time.perf_counter() - t0
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run()
+                walls.append(time.perf_counter() - t0)
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            split = query_host_split(run)
+            launched = read_launches()
+            t0 = time.perf_counter()
+            [m.drop_name() for m in raw.series]  # the split's row, without its clock
+            drop_name_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            prof = profiled(run)
+            cpu_blk = cpu_eng.execute_range(HQ_QUERY, q_start, q_end, PROMQL_STEP)
+        finally:
+            precision.set_compute_dtype("f64")
+        # device busy: the trace without its host-to-device copies (which
+        # it may have dropped) plus the uploads timed with CUDA events
+        busy = prof["busy_no_htod_s"] + split["upload_copies_device_ms"] * 1e-3
+        # config #5 reads raw samples, not streams: no hand kernel is on it
+        assert not any(launched.values()), launched
+        assert blk.values.shape == (G, T) and blk.values.dtype == np.float64
+        assert [m.as_dict()[b"group"] for m in blk.series] == [b"g%06d" % g for g in range(G)]
+        assert np.isfinite(blk.values).mean() > 0.99, np.isfinite(blk.values).mean()
+        # the scalar Prometheus oracles on sampled groups
+        rtol = 1e-6 if policy == "f64" else 5e-3
+        worst = 0.0
+        for g in check_groups:
+            rates = np.stack([oracle_rate(ts[g * B + b], vals[g * B + b], steps, RATE_WIN)
+                              for b in range(B)])
+            want = np.array([oracle_hq(ubs, rates[:, j], 0.99) for j in range(T)])
+            got = blk.values[g]
+            assert np.array_equal(np.isnan(got), np.isnan(want)), g
+            assert np.allclose(got, want, rtol=rtol, atol=1e-12, equal_nan=True), (
+                g, got[:4], want[:4])
+            worst = max(worst, rel_err(got, want))
+        # the port's own CPU run on the first groups
+        assert cpu_blk.series == blk.series[:n_cpu]
+        card_rows = blk.values[:n_cpu]
+        assert np.array_equal(np.isnan(card_rows), np.isnan(cpu_blk.values))
+        cvc = rel_err(card_rows, cpu_blk.values)
+        assert cvc <= CARD_VS_CPU_RTOL[policy], (policy, cvc)
+        t = {"eval_best_ms": min(walls) * 1e3, "eval_runs_ms": [w * 1e3 for w in walls],
+             "warm_up_s": warm_s, **{f"split_{k}": v for k, v in split.items()},
+             "drop_name_unclocked_ms": drop_name_s * 1e3,
+             "profiled_wall_ms": prof["wall_s"] * 1e3,
+             "device_busy_ms": busy * 1e3,
+             "device_busy_no_upload_ms": prof["busy_no_htod_s"] * 1e3,
+             "trace_htod_ms": prof["htod_s"] * 1e3, "trace_htod_bytes": prof["htod_bytes"],
+             "device_idle_share": 1 - busy / prof["wall_s"],
+             "device_idle_share_vs_best": 1 - busy / min(walls),
+             "device_ops": prof["ops_no_htod"] + split["uploads"],
+             "peak_mem_gib": peak / 2**30, "oracle_max_rel_err": worst,
+             "card_vs_cpu_max_rel_err": cvc}
+        times[policy] = t
+        log(f"phase12 [{card}] config #5 {policy}: {len(check_groups)} groups == scalar "
+            f"Prometheus oracles (rtol {rtol}, largest rel err {worst:.3e}); first {n_cpu} "
+            f"groups card == CPU within rtol {CARD_VS_CPU_RTOL[policy]} (largest {cvc:.3e})")
+        log(f"phase12 [{card}] config #5 {policy} times: " + json.dumps(t))
+    times["families"] = family_queries(eng, ts, vals, ub_labels, steps, dev, card)
+    return times
+
+
+def family_queries(eng, ts, vals, ub_labels, steps, dev, card: str) -> dict:
+    """Phase 12, second part: one query per temporal family and device
+    function over the full block on the card (time and peak memory), then
+    on the first 256 groups on the card and on the CPU, compared under
+    ``family_bound``."""
+    import torch
+
+    from m3_tpu_torch.query import engine as qe
+
+    B = len(ub_labels)
+    n = min(256, ts.shape[0] // B) * B
+    sl = raw_block(ts, vals, ub_labels, np.arange(n))
+    card_sl = qe.Engine(BlockStorage(sl), device=dev)
+    cpu_sl = qe.Engine(BlockStorage(sl), device="cpu")
+    q0, q1 = int(steps[0]), int(steps[-1])
+    out = {}
+    for q, kind in FAMILY_QUERIES:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        full = eng.execute_range(q, q0, q1, PROMQL_STEP)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        a = card_sl.execute_range(q, q0, q1, PROMQL_STEP)
+        b = cpu_sl.execute_range(q, q0, q1, PROMQL_STEP)
+        assert a.series == b.series and a.values.shape == b.values.shape, q
+        assert np.array_equal(np.isnan(a.values), np.isnan(b.values)), q
+        assert np.isfinite(full.values).any(), q
+        per_row = len(b.series) == n  # a series-wise result: rows align with the slice
+        bound = family_bound(kind, sl, steps, b.values) if per_row else 0.0
+        d = np.abs(a.values - b.values)
+        ok = ~np.isnan(b.values)
+        assert (d[ok] <= np.broadcast_to(bound, d.shape)[ok]).all(), (q, float(d[ok].max()))
+        out[q] = {"wall_ms": wall * 1e3, "peak_mem_gib": peak / 2**30,
+                  "rows": full.values.shape[0], "card_vs_cpu_max_abs": float(d[ok].max())}
+        log(f"phase12 [{card}] {q}: {full.values.shape[0]} x {full.values.shape[1]} in "
+            f"{wall * 1e3:.1f} ms, peak device memory {peak / 2**30:.2f} GiB; first {n} series "
+            f"card == CPU within the {kind} bound (largest |diff| {float(d[ok].max()):.3e})")
+    return out
+
+
+def bytes_to_quantiles(seed: int, G: int, B: int, dev, card: str) -> tuple:
+    """Phase 13: phase 12's counters encoded with the port's encoder on
+    the card, then ``decode_rate_hq`` from the stream words.  M3TSZ takes
+    a value within one ulp of a decimal (x 10^k, k < 7) as that decimal
+    (the reference's convertToIntFloat), so a few random doubles come
+    back snapped: the decoded timestamps and value bits are held against
+    the codec's host path (``decode_batch``) exactly, and against the
+    generated values, which they equal but for those snaps (a few ulp
+    each).
+    The engine's f64 ``rate`` over the decoded samples must equal the
+    pipeline's rates bit for bit, and its ``histogram_quantile(0.99, sum
+    by (le) (rate(...)))`` the pipeline's hq within rtol 1e-12 (the
+    bucket sums add in other orders).  Kernel #2's own outputs in
+    ``decode_to_step_series`` and in the counted ``decode_rate_hq`` run
+    are held bit for bit against ``extract_fields64_t_plain`` on the same
+    inputs, and the kernel is timed on them.  Returns (times, the four
+    kernels' launches on the path)."""
+    import torch
+
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.parallel import decode_gather
+    from m3_tpu_torch.parallel import sharded_query as sq
+    from m3_tpu_torch.query import engine as qe
+
+    ts, vals, ub_labels = promql_corpus(seed, G, B)
+    S, P = ts.shape
+    # worst case ~80 bits a point (a 32-bit delta-of-delta and a full XOR)
+    out_words = P * 80 // 64 + 8
+    t0 = time.perf_counter()
+    streams, fb = mt.encode_batch(ts, vals, ts[:, 0].copy(), out_words=out_words, device=dev)
+    enc_s = time.perf_counter() - t0
+    share = float(fb.mean())
+    log(f"phase13 encode {S} x {P} counters on the card: {enc_s:.2f} s, fallback share "
+        f"{share:.5f}")
+    assert share < 0.05, share
+    keep = np.flatnonzero(~fb)
+    streams = [streams[i] for i in keep]
+    words, nbits = mt.pack_streams(streams)
+    bucket_ids = (keep % B).astype(np.int32)
+    ubs = np.array([np.inf if u == b"+Inf" else float(u) for u in ub_labels])
+    q_start = PROMQL_START + RATE_WIN
+    steps = np.arange(q_start, q_start + PROMQL_RANGE + 1, PROMQL_STEP, dtype=np.int64)
+    w_d = torch.from_numpy(words.view(np.int64)).to(dev)
+    nb_d = torch.from_numpy(nbits).to(dev)
+
+    h_ts, h_vals, h_counts, h_fb = mt.decode_batch(streams, P + 1, device=dev)
+    assert not h_fb.any() and (h_counts == P).all()
+    h_ts, h_vals = h_ts[:, :P], h_vals[:, :P]
+    assert np.array_equal(h_ts, ts[keep])
+    snapped = h_vals.view(np.int64) != vals[keep].view(np.int64)
+    ulps = np.abs(h_vals.view(np.int64)[snapped] - vals[keep].view(np.int64)[snapped])
+    # within one ulp of N at 10^k, so within a few ulp of N / 10^k
+    assert snapped.mean() < 1e-5 and (ulps <= 4).all(), (int(snapped.sum()), ulps[:5])
+    with KernelCheck(mt, "extract_fields64_t",
+                     decode_gather.extract_fields64_t_plain) as check13:
+        d_ts, d_vals, d_err = sq.decode_to_step_series(w_d, nb_d, P + 1)
+    assert not bool(d_err.any())
+    assert np.array_equal(d_ts[:, :P].cpu().numpy(), h_ts)
+    assert np.array_equal(d_vals[:, :P].cpu().numpy().view(np.int64), h_vals.view(np.int64)), \
+        "decoded value bits"
+    log(f"phase13 decoded timestamps and value bits == the codec's host path for "
+        f"{len(keep)} series; {int(snapped.sum())} of {snapped.size} values snapped to a "
+        f"decimal by M3TSZ, at most {int(ulps.max(initial=0))} ulp from the generated value")
+    del d_ts, d_vals, d_err
+
+    run = lambda: sq.decode_rate_hq(w_d, nb_d, bucket_ids, steps, ubs, RATE_WIN, 0.99,
+                                    P + 1, B, device=dev)
+    run()  # warm-up
+    with KernelCheck(mt, "extract_fields64_t",
+                     decode_gather.extract_fields64_t_plain) as check:
+        zero_launches()
+        rates, hq, errs = run()
+        torch.cuda.synchronize()
+        launches = read_launches()
+    log(f"phase13 launches of the four kernels in decode_rate_hq: {launches}")
+    assert launches["extract_fields64_t"] > 0, launches
+    ext = check.summary(check13)
+    log(f"phase13 extract_fields64_t: the path's own outputs bit-equal to the plain version "
+        f"on the same inputs in decode_to_step_series and decode_rate_hq "
+        f"({ext['ext_calls']} calls; words {ext['ext_words_shape']}, lanes "
+        f"{ext['ext_lanes_shape']}); kernel {ext['ext_ms']:.3f} ms, plain "
+        f"{ext['ext_plain_ms']:.3f} ms, bound {ext['ext_bound_ms']:.3f} ms (bytes)")
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    prof = profiled(run)
+
+    raw = raw_block(ts, vals, ub_labels, keep)
+    raw.values = h_vals  # what storage would hand the engine: the decoded samples
+    eng = qe.Engine(BlockStorage(raw), device=dev)
+    want_rates = eng.execute_range("rate(m3_req_bucket[5m])", int(steps[0]), int(steps[-1]),
+                                   PROMQL_STEP)
+    want_hq = eng.execute_range(
+        "histogram_quantile(0.99, sum by (le) (rate(m3_req_bucket[5m])))",
+        int(steps[0]), int(steps[-1]), PROMQL_STEP)
+    assert not bool(errs.any())
+    r = rates.cpu().numpy()
+    assert np.array_equal(r.view(np.int64), want_rates.values.view(np.int64)), "rates"
+    h = hq.cpu().numpy()
+    assert want_hq.values.shape == (1, len(steps))
+    assert np.array_equal(np.isnan(h), np.isnan(want_hq.values[0]))
+    hq_err = rel_err(h, want_hq.values[0])
+    assert hq_err <= 1e-12, hq_err
+    t = {"series": int(len(keep)), "encode_s": enc_s, "fallback_share": share,
+         "snapped_values": int(snapped.sum()),
+         "pipeline_best_ms": min(walls) * 1e3, "pipeline_runs_ms": [w * 1e3 for w in walls],
+         "profiled_wall_ms": prof["wall_s"] * 1e3, "device_busy_ms": prof["busy_s"] * 1e3,
+         "device_idle_share": 1 - prof["busy_s"] / prof["wall_s"],
+         "device_idle_share_vs_best": 1 - prof["busy_s"] / min(walls),
+         "device_ops": prof["ops"], "hq_vs_engine_max_rel_err": hq_err, **ext}
+    log(f"phase13 [{card}] bytes -> quantiles: rates == the engine's over the decoded "
+        f"samples bit for bit, hq == the engine's sum-by-le form within rtol 1e-12 "
+        f"(largest {hq_err:.3e}); times " + json.dumps(t))
+    return t, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1259,6 +1928,25 @@ def main() -> int:
     log(f"phase11 [{card}] peak device memory: f64 {agg_peak / 2**30:.2f} GiB | "
         f"packed {packed_peak / 2**30:.2f} GiB")
     log(f"phase11 [{card}] aggregator, packed: " + json.dumps(packed_t))
+    del packed_t
+    torch.cuda.empty_cache()
+
+    # ---- phases 12-13: the PromQL query path (BASELINE config #5) ----
+    t0 = time.perf_counter()
+    promql_t = promql_config5(args.seed, PROMQL_GROUPS, PROMQL_BUCKETS, dev, card)
+    log(f"phase12 done in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pipe_t, query_launches = bytes_to_quantiles(args.seed, PROMQL_GROUPS, PROMQL_BUCKETS,
+                                                dev, card)
+    log(f"phase13 done in {time.perf_counter() - t0:.1f} s")
+    for k in kernels:
+        k["query_launches"] = query_launches[k["name"]]
+        if k["name"] == "extract_fields64_t":  # also held at the query path's shapes
+            k["max_abs_err"] = max(k["max_abs_err"], pipe_t["ext_max_abs_err"])
+            k.update(query_ms=pipe_t["ext_ms"], query_plain_ms=pipe_t["ext_plain_ms"],
+                     query_bound_ms=pipe_t["ext_bound_ms"])
+    log(f"phase13 [{card}] query path: " + json.dumps({"config5": promql_t, "pipeline": pipe_t}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,13 +1,15 @@
 """On a card: each CUDA kernel of m3_tpu_torch against its plain PyTorch
-version, the codec's card bytes against its CPU bytes, and an aggregator
-drive on the card against the same drive on the CPU.  Exact comparisons,
-float sums included: the ``segment_ingest`` kernel adds each lane's
-points in arrival order, as the plain version does on the CPU (on the
-card ``index_add_`` adds floats with atomics in no fixed order, so the
-plain side of a float comparison runs on CPU copies).  Only the
-aggregator drive's MEAN and STDEV, elementwise arithmetic on two
-devices, keep relative 1e-12 and absolute 1e-9.  Without a CUDA device
-every test here skips.
+version, the codec's card bytes against its CPU bytes, an aggregator
+drive on the card against the same drive on the CPU, and the query
+engine and ``decode_rate_hq`` on the card against the CPU.  Exact
+comparisons, float sums included: the ``segment_ingest`` kernel adds
+each lane's points in arrival order, as the plain version does on the
+CPU (on the card ``index_add_`` adds floats with atomics in no fixed
+order, so the plain side of a float comparison runs on CPU copies).
+The aggregator drive's MEAN and STDEV, elementwise arithmetic on two
+devices, keep relative 1e-12 and absolute 1e-9; the query tests state
+their tolerances (the card's cumsum and reductions add in other
+orders).  Without a CUDA device every test here skips.
 
 This file imports no JAX (the card's machine need not have it), so it
 runs there without the suite's conftest:
@@ -371,3 +373,111 @@ def test_packed_arena_states_on_card_equal_cpu():
         for a in arenas:
             a.reset_window(0)
     same("reset")
+
+
+class _QueryStorage:
+    """Series in memory; the name and the matchers applied, points kept
+    in [start, end)."""
+
+    def __init__(self, series):
+        self.series = series
+
+    def fetch_raw(self, name, matchers, start_nanos, end_nanos):
+        from m3_tpu_torch.query.block import RawBlock, SeriesMeta
+
+        pts, metas = [], []
+        for tags, ts, vals in self.series:
+            if tags[b"__name__"] != name or any(tags.get(m.name) != m.value
+                                                for m in matchers):
+                continue
+            keep = (ts >= start_nanos) & (ts < end_nanos)
+            pts.append(list(zip(ts[keep].tolist(), vals[keep].tolist())))
+            metas.append(SeriesMeta(tuple(sorted(tags.items()))))
+        return RawBlock.from_lists(pts, metas)
+
+
+def _query_corpus(seed=8, N=200):
+    rng = np.random.default_rng(seed)
+    out = []
+    for host in range(6):
+        ts = START + np.cumsum(rng.integers(10, 20, N)) * SEC
+        v = np.cumsum(rng.integers(0, 50, N)).astype(float)
+        v[N // 2:] -= v[N // 2] - 1.0  # a counter reset
+        out.append(({b"__name__": b"req", b"host": b"h%d" % host}, ts, v))
+        g = np.round(rng.normal(50, 8, N), 2)
+        g[rng.random(N) < 0.05] = np.nan
+        out.append(({b"__name__": b"temp", b"host": b"h%d" % host}, ts, g))
+        for le in (b"0.1", b"1", b"+Inf"):
+            out.append(({b"__name__": b"lat", b"host": b"h%d" % host, b"le": le}, ts,
+                        v * {b"0.1": 0.3, b"1": 0.7, b"+Inf": 1.0}[le]))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", [
+    "histogram_quantile(0.9, rate(lat[5m]))", "rate(req[5m])", "irate(req[2m])",
+    "sum_over_time(temp[5m])", "stddev_over_time(temp[5m])",
+    "quantile_over_time(0.7, temp[5m])", "max_over_time(temp[5m])", "deriv(req[10m])",
+    "resets(req[10m])", "holt_winters(temp[5m], 0.3, 0.6)",
+    "topk(2, rate(req[5m]))", "quantile(0.5, temp)", "sum by (le) (rate(lat[5m]))",
+    'rate(lat{le="0.1"}[5m]) / ignoring (le) rate(lat{le="+Inf"}[5m])',
+    "temp > bool 50", "sgn(temp - 50) ^ 2", "temp and temp > 50", "day_of_week()",
+    'max_over_time(rate(req{host="h0"}[5m])[10m:1m])'])
+@pytest.mark.parametrize("policy", ["f64", "f32"])
+def test_query_engine_card_matches_cpu(q, policy):
+    """The engine on the card against the engine on the CPU.  The card's
+    parallel cumsum and reductions add in other orders: rtol 1e-9 plus
+    1e-9 of the block's largest |value| (f64), 1e-5 (f32)."""
+    from m3_tpu_torch.query import engine as qe
+    from m3_tpu_torch.query import precision
+
+    dev = _cuda_or_skip()
+    storage = _QueryStorage(_query_corpus())
+    t0, t1 = START + 20 * 60 * SEC, START + 45 * 60 * SEC
+    precision.set_compute_dtype(policy)
+    try:
+        a = qe.Engine(storage, device=dev).execute_range(q, t0, t1, 60 * SEC)
+        b = qe.Engine(storage, device="cpu").execute_range(q, t0, t1, 60 * SEC)
+    finally:
+        precision.set_compute_dtype("f64")
+    assert a.series == b.series and a.values.shape == b.values.shape
+    np.testing.assert_array_equal(np.isnan(a.values), np.isnan(b.values))
+    ok = np.isfinite(b.values)
+    rtol = 1e-9 if policy == "f64" else 1e-5
+    scale = np.abs(b.values[ok]).max(initial=0.0)
+    np.testing.assert_allclose(a.values[ok], b.values[ok], rtol=rtol, atol=rtol * scale)
+
+
+@pytest.mark.gpu
+def test_decode_rate_hq_card_matches_cpu():
+    """Bytes to quantiles on the card against the CPU: decoded values and
+    timestamps exact, rates bit for bit (the reset correction adds one
+    non-zero term a row), hq rtol 1e-12 (the bucket sums add in other
+    orders); kernel #2 launches."""
+    from m3_tpu_torch.parallel import sharded_query as sq
+
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(2)
+    S, T, B = 96, 120, 4
+    ts = np.tile(START + np.arange(T, dtype=np.int64) * 15 * SEC, (S, 1))
+    vals = np.cumsum(rng.gamma(2.0, 3.0, (S, T)), axis=1)
+    vals[5, T // 2:] -= vals[5, T // 2] - 1.0
+    streams, fb = mt.encode_batch(ts, vals, ts[:, 0].copy(), out_words=T * 80 // 64 + 8,
+                                  device="cpu")
+    assert not fb.any()
+    words, nbits = mt.pack_streams(streams)
+    bid = (np.arange(S) % B).astype(np.int32)
+    steps = START + np.arange(30, T, 4, dtype=np.int64) * 15 * SEC
+    ubs = np.array([0.1, 1.0, 5.0, np.inf])
+    args = (words, nbits, bid, steps, ubs, 5 * 60 * SEC, 0.9, T + 1, B)
+    before = dg.launches
+    r_c, h_c, e_c = sq.decode_rate_hq(*args, device=dev)
+    assert dg.launches > before
+    r_h, h_h, e_h = sq.decode_rate_hq(*args, device="cpu")
+    assert torch.equal(e_c.cpu(), e_h) and not bool(e_h.any())
+    assert _same_bits(r_c.cpu(), r_h)
+    np.testing.assert_allclose(h_c.cpu().numpy(), h_h.numpy(), rtol=1e-12)
+    w = torch.from_numpy(words.view(np.int64))
+    d_c = sq.decode_to_step_series(w.to(dev), torch.from_numpy(nbits).to(dev), T + 1)
+    d_h = sq.decode_to_step_series(w, torch.from_numpy(nbits), T + 1)
+    assert torch.equal(d_c[0].cpu(), d_h[0]) and _same_bits(d_c[1].cpu(), d_h[1])
