@@ -1,14 +1,19 @@
-"""Time units (the part of ``m3_tpu.core.xtime`` the codec needs, copied:
-importing anything of ``m3_tpu`` imports JAX).
+"""Time units and UnixNano helpers.
 
-Wire-format byte values of units must match the reference exactly
-because time-unit changes are encoded into M3TSZ streams as a raw unit
-byte (``src/dbnode/encoding/m3tsz/timestamp_encoder.go:133``).
+TPU-native port-of-capability for the reference's ``src/x/time`` package
+(unit enum: ``src/x/time/unit.go:31-41``; normalized-duration conversion:
+``src/x/time/time.go:49-56``).  Wire-format byte values of units must match
+the reference exactly because time-unit changes are encoded into M3TSZ
+streams as a raw unit byte (``src/dbnode/encoding/m3tsz/timestamp_encoder.go:133``).
+
+The port's copy of ``m3_tpu/core/xtime.py`` (it imports nothing of ``m3_tpu``).
 """
 
 from __future__ import annotations
 
 import enum
+
+NANOS_PER_SECOND = 1_000_000_000
 
 
 class Unit(enum.IntEnum):
@@ -23,6 +28,9 @@ class Unit(enum.IntEnum):
     HOUR = 6
     DAY = 7
     YEAR = 8
+
+    def is_valid(self) -> bool:
+        return self != Unit.NONE
 
     def nanos(self) -> int:
         """Duration of one unit in nanoseconds (0 for NONE, like the reference)."""
@@ -40,3 +48,37 @@ _UNIT_NANOS = {
     Unit.DAY: 24 * 3_600 * 1_000_000_000,
     Unit.YEAR: 365 * 24 * 3_600 * 1_000_000_000,
 }
+
+
+def unit_from_byte(b: int) -> Unit:
+    try:
+        return Unit(b)
+    except ValueError:
+        return Unit.NONE
+
+
+def to_normalized_duration(d_nanos: int, unit_nanos: int) -> int:
+    """Integer division truncating toward zero (Go semantics)."""
+    q = abs(d_nanos) // unit_nanos
+    return q if d_nanos >= 0 else -q
+
+
+def from_normalized_duration(nd: int, unit_nanos: int) -> int:
+    return nd * unit_nanos
+
+
+def initial_time_unit(start_nanos: int, unit: Unit) -> Unit:
+    """Mirror of ``m3tsz.initialTimeUnit`` (timestamp_encoder.go:248-259)."""
+    if not unit.is_valid():
+        return Unit.NONE
+    tv = unit.nanos()
+    if tv == 0:
+        return Unit.NONE
+    if start_nanos % tv == 0:
+        return unit
+    return Unit.NONE
+
+
+def truncate_to(nanos: int, window_nanos: int) -> int:
+    """Floor a UnixNano to a window boundary (block starts)."""
+    return nanos - (nanos % window_nanos)

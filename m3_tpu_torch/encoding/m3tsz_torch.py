@@ -417,7 +417,7 @@ def _lane_frags(valq, pos, n):
 def encode_batch_device(timestamps, value_bits, start, valid, unit: int = 1,
                         out_words: int = 0, prefix_bits=None,
                         default_unit: int | None = None, device=None,
-                        timings: dict | None = None):
+                        timings: dict | None = None, fit_words: bool = False):
     """Encode (S, T) series on one device.
 
     Args:
@@ -435,6 +435,9 @@ def encode_batch_device(timestamps, value_bits, start, valid, unit: int = 1,
         ``DefaultTimeUnit``); None means ``unit``, the JAX contract.
       device: None = CUDA (raises without one); "cpu" on request.
       timings: optional dict; gains host-clock seconds per phase.
+      fit_words: size the output to the longest stream instead of
+        ``out_words`` (one device-to-host read after phase 1), so that
+        no series falls back for its length.
 
     Returns dict with packed words (S, W) int64 (u64 bits, starting with
     the 64-bit start time), total_bits (S,) int64, fallback (S,) bool.
@@ -471,6 +474,8 @@ def encode_batch_device(timestamps, value_bits, start, valid, unit: int = 1,
         64 + torch.as_tensor(prefix_bits, dtype=I32).to(dev)[None, :])
     off_dp = torch.cumsum(lens, dim=0, dtype=I32) - lens + base
     total_bits = (off_dp[-1] + lens[-1]).to(I64)
+    if fit_words:
+        W = int(total_bits.max()) // 64 + 1 if S else 1
     pos = off_dp[:, None, :] + (torch.cumsum(lw, dim=1, dtype=I32) - lw)
     F = 4 * T
     hi, lo, gw = _lane_frags(lv.reshape(F, S), pos.reshape(F, S),
@@ -550,7 +555,7 @@ def _annotation_prefix(ann: bytes):
 def encode_batch(timestamps, values, start, counts=None, unit: Unit = Unit.SECOND,
                  out_words: int = 0, annotations=None,
                  default_unit: Unit | None = None, device=None,
-                 timings: dict | None = None):
+                 timings: dict | None = None, fit_words: bool = False):
     """Host-facing batched encode.
 
     Returns (streams: list[bytes], fallback: np.ndarray[bool]); fallback
@@ -560,7 +565,8 @@ def encode_batch(timestamps, values, start, counts=None, unit: Unit = Unit.SECON
     ``annotations`` (optional list[bytes|None], len S) attaches an
     annotation to each series' FIRST datapoint: the device output shifts
     by the prefix width and the host splices marker+varint+bytes in.
-    ``default_unit`` is the encoder's default time unit (see
+    ``default_unit`` is the encoder's default time unit and
+    ``fit_words`` sizes the output to the longest stream (see
     ``encode_batch_device``).
     """
     timestamps = np.asarray(timestamps, dtype=np.int64)
@@ -586,7 +592,7 @@ def encode_batch(timestamps, values, start, counts=None, unit: Unit = Unit.SECON
         torch.from_numpy(valid), unit=int(unit), out_words=out_words,
         prefix_bits=prefix_bits,
         default_unit=None if default_unit is None else int(default_unit),
-        device=device, timings=timings)
+        device=device, timings=timings, fit_words=fit_words)
     t0 = time.perf_counter()
     fallback = res["fallback"].cpu().numpy()
     words_out = res["words"].cpu().numpy().view(np.uint64)

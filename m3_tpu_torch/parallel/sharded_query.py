@@ -18,6 +18,7 @@ import torch
 
 from m3_tpu_torch import resolve_device
 from m3_tpu_torch.encoding import m3tsz_torch as codec
+from m3_tpu_torch.parallel import segment_ingest
 from m3_tpu_torch.query import device_fns, temporal
 
 _I64_MAX = np.iinfo(np.int64).max
@@ -50,19 +51,27 @@ def decode_to_step_series(words, nbits, max_points: int):
 
 def _bucket_sum(rates, bucket_ids, num_buckets: int):
     """(S, T) rates (NaN as 0) summed by le bucket -> (B, T) float64.
-    Up to 64 buckets an unrolled masked sum (no scatter); above that the
-    degenerate many-bucket case scatters with ``index_add_`` (float
-    atomics on the card: the order of its adds varies from run to
-    run)."""
+    Up to 64 buckets an unrolled masked sum (no scatter).  Above that
+    each rate adds into its flat lane ``bucket * T + t`` through kernel
+    #3 (``segment_ingest_into``), which adds a lane's points in arrival
+    order (series order here): the same bits on every run, equal to the
+    CPU's ``index_add_``.  Every lane takes S/B adds, so the kernel runs
+    its collided-lane pass."""
     r0 = torch.nan_to_num(rates)
     bidc = bucket_ids.clamp(0, num_buckets - 1)
     if num_buckets <= 64:
         return torch.stack([
             torch.where((bidc == b)[:, None], r0, 0.0).sum(dim=0)
             for b in range(num_buckets)])
-    part = torch.zeros((num_buckets, rates.shape[1]), dtype=torch.float64,
-                       device=rates.device)
-    return part.index_add_(0, bidc.long(), r0)
+    S, T = r0.shape
+    dev = rates.device
+    lanes = (bidc.to(torch.int64)[:, None] * T
+             + torch.arange(T, dtype=torch.int64, device=dev)[None, :])
+    part = torch.zeros(num_buckets * T, dtype=torch.float64, device=dev)
+    cnt = torch.zeros(num_buckets * T, dtype=torch.int32, device=dev)
+    segment_ingest.segment_ingest_into(part, cnt, None, lanes.reshape(-1),
+                                       r0.contiguous().reshape(-1))
+    return part.view(num_buckets, T)
 
 
 def _hq_one(total, ubs, q):

@@ -481,3 +481,113 @@ def test_decode_rate_hq_card_matches_cpu():
     d_c = sq.decode_to_step_series(w.to(dev), torch.from_numpy(nbits).to(dev), T + 1)
     d_h = sq.decode_to_step_series(w, torch.from_numpy(nbits), T + 1)
     assert torch.equal(d_c[0].cpu(), d_h[0]) and _same_bits(d_c[1].cpu(), d_h[1])
+
+
+def _f64_bits_equal(a, b):
+    return torch.equal(a.cpu().view(torch.int64), b.cpu().view(torch.int64))
+
+
+@pytest.mark.gpu
+def test_decode_rate_hq_many_buckets_bit_equal_on_two_runs():
+    """B = 66 buckets (past the masked sum's 64): kernel #3 adds each
+    (bucket, step) lane's rates in series order, so two card runs and
+    the CPU give the same rates and bucket sums bit for bit."""
+    from m3_tpu_torch.parallel import sharded_query as sq
+
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(6)
+    S, T, B = 66 * 40, 60, 66
+    ts = np.tile(START + np.arange(T, dtype=np.int64) * 15 * SEC, (S, 1))
+    vals = np.cumsum(rng.gamma(2.0, 3.0, (S, T)), axis=1)
+    streams, fb = mt.encode_batch(ts, vals, ts[:, 0].copy(), out_words=T * 80 // 64 + 8,
+                                  device="cpu")
+    assert not fb.any()
+    words, nbits = mt.pack_streams(streams)
+    bid = (np.arange(S) % B).astype(np.int32)
+    steps = START + np.arange(21, T, 3, dtype=np.int64) * 15 * SEC
+    ubs = np.concatenate([np.arange(1, B, dtype=np.float64), [np.inf]])
+    args = (words, nbits, bid, steps, ubs, 5 * 60 * SEC, 0.9, T + 1, B)
+    r_c, h_c, _ = sq.decode_rate_hq(*args, device="cpu")
+    sums = []
+    for _ in range(2):
+        before = si.launches["segment_ingest"]
+        r_g, h_g, _ = sq.decode_rate_hq(*args, device=dev)
+        assert si.launches["segment_ingest"] > before
+        assert _f64_bits_equal(r_g, r_c)
+        sums.append(sq._bucket_sum(r_g, torch.from_numpy(bid).to(dev), B))
+    want = sq._bucket_sum(r_c, torch.from_numpy(bid), B)
+    assert _f64_bits_equal(sums[0], want) and _f64_bits_equal(sums[1], want)
+    np.testing.assert_array_equal(h_g.cpu().numpy(), h_c.numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", range(3))
+def test_buffer_append_and_drain_card_equal_cpu(seed):
+    """buffer_append and buffer_drain on the card against the CPU, bit
+    for bit: out-of-range windows, overflow past the capacity and
+    duplicate (slot, ts) pairs included."""
+    from m3_tpu_torch.storage import buffer as bf
+
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(seed)
+    W, S, C = 3, 1 << 9, 1000
+    states = {}
+    for d in ("cpu", dev):
+        states[str(d)] = bf.buffer_init(W, S, C, d)
+    for _ in range(3):
+        n = int(rng.integers(1000, 3000))
+        cols = (rng.integers(-1, W + 1, n).astype(np.int32),
+                rng.integers(0, C, n).astype(np.int32),
+                rng.integers(0, 200, n).astype(np.int64),
+                rng.normal(size=n))
+        for d, st in states.items():
+            states[d] = bf.buffer_append(st, *(torch.from_numpy(a).to(d) for a in cols))
+    c, g = states["cpu"], states[str(dev)]
+    assert int(c.n.max()) > S  # overflow reached
+    for a, b in zip(c, g):
+        assert torch.equal(a.view(torch.int64) if a.dtype == torch.float64 else a,
+                           (b.view(torch.int64) if b.dtype == torch.float64 else b).cpu())
+    for w in range(W):
+        for a, b in zip(bf.buffer_drain(c, w), bf.buffer_drain(g, w)):
+            assert torch.equal(a.view(torch.int64) if a.dtype == torch.float64 else a,
+                               (b.view(torch.int64) if b.dtype == torch.float64 else b).cpu())
+
+
+@pytest.mark.gpu
+def test_database_flush_on_card_writes_cpu_bytes(tmp_path):
+    """A small Database fed the same writes on the card and on the CPU
+    writes identical fileset volumes (warm volume 0 through kernel #1,
+    cold volume 1) and reads back the same points."""
+    import hashlib
+    import pathlib
+
+    from m3_tpu_torch.storage.database import Database, DatabaseOptions
+
+    dev = _cuda_or_skip()
+    block = 2 * 3600 * SEC
+    start = START // block * block
+    ids = [b"s%04d" % i for i in range(500)]
+    out = {}
+    for d in ("cpu", dev):
+        root = tmp_path / str(d)
+        db = Database(DatabaseOptions(root=str(root)), device=d)
+        rng = np.random.default_rng(1)
+        for k in range(40):
+            db.write_batch("default", ids, np.full(500, start + k * 10 * SEC),
+                           rng.normal(size=500).round(1))
+        before = ep.launches
+        now = start + block + 11 * 60 * SEC
+        db.tick(now)
+        if d == dev:
+            assert ep.launches > before
+        db.write_batch("default", ids[:50], np.full(50, start + 5 * SEC), np.ones(50),
+                       now_nanos=now)
+        db.tick(now + SEC)
+        reads = db.read_batch("default", ids, start, start + block)
+        db.close()
+        files = {str(p.relative_to(root)): hashlib.sha256(p.read_bytes()).hexdigest()
+                 for p in sorted(pathlib.Path(root, "data").rglob("*")) if p.is_file()}
+        out[str(d)] = (files, reads)
+    (fc, rc), (fg, rg) = out.values()
+    assert fc == fg and any("-1-data" in f for f in fc)
+    assert rc == rg

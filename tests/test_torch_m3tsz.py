@@ -17,7 +17,7 @@ import jax.numpy as jnp
 from tests.conftest import DATA_DIR
 from tests.test_decode_fuzz import _fuzz_batch
 from m3_tpu.encoding import m3tsz_jax as mj
-from m3_tpu.encoding.m3tsz import decode_series
+from m3_tpu.encoding.m3tsz import decode_series, encode_series
 from m3_tpu_torch.core.xtime import Unit
 from m3_tpu_torch.encoding import m3tsz_torch as mt
 
@@ -200,6 +200,31 @@ def test_go_streams_reencode_byte_identical(go_streams):
                                out_words=T * 40 // 64 + 8, device="cpu")
     assert not fb2.any()
     assert out == go_streams
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e3, 1e-300])
+def test_fit_words_sizes_to_the_longest_stream(scale):
+    """Raw doubles (the XOR path) overflow a 40-bits-a-point sizing and
+    fall back; ``fit_words`` sizes the output to the longest stream, so
+    none falls back and every stream is the scalar encoder's."""
+    rng = np.random.default_rng(int(np.log10(scale)) + 400)
+    S, T = 9, 180
+    ts = np.tile(START + np.arange(1, T + 1) * 10 * SEC, (S, 1)).astype(np.int64)
+    vals = rng.normal(0, 1, (S, T)) * scale
+    vals[0] = np.round(vals[0] / scale, 1)  # one short stream beside the long ones
+    counts = np.full(S, T, np.int64)
+    counts[1] = 7
+    starts = np.full(S, START, np.int64)
+    _, fb40 = mt.encode_batch(ts, vals, starts, counts=counts,
+                              out_words=T * 40 // 64 + 8, device="cpu")
+    assert fb40[2:].all()
+    got, fb = mt.encode_batch(ts, vals, starts, counts=counts, fit_words=True,
+                              device="cpu")
+    assert not fb.any()
+    want = [encode_series(list(zip(ts[i, :counts[i]].tolist(),
+                                   vals[i, :counts[i]].tolist())), start=START)
+            for i in range(S)]
+    assert got == want
 
 
 def test_first_datapoint_annotation_matches_jax():
