@@ -112,9 +112,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    on) and the commit log on: 100,000 untagged gauges x 720 scrapes at
    10 s over one 2 h block (phase 3's value mix), 1 % rewritten at the
    same timestamp with another value, 0.1 % two hours late (cold lists)
-   and 100 samples beyond bufferFuture; the first 240 scrapes through
+   and 100 samples beyond bufferFuture; the first 120 scrapes through
    ``Database.write_batch`` (shard hash, slot resolve, commit log,
-   buffer), the other 480 through each shard's ``buffer.write`` with
+   buffer), the other 600 through each shard's ``buffer.write`` with
    the slots resolved; ``tick`` past the block's end plus bufferPast
    (drain sort, ``encode_batch`` with kernel #1 held bit for bit
    against its plain version on its inputs, fileset write), late writes
@@ -122,32 +122,65 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    block; every volume decoded on the card (kernel #2, held against its
    plain version) equal bit for bit to a last-write-wins oracle of
    everything acknowledged; ``read_batch`` of 1,000 series equal to the
-   oracle; snapshot and cleanup, then 60 scrapes (10 minutes, 6,000,000
+   oracle; snapshot and cleanup, then 30 scrapes (5 minutes, 3,000,000
    samples) of the next block through ``Database.write_batch``, left
    unflushed, and a restart whose ``bootstrap()`` replays their commit
    log into the card's buffers; the same reads, now over that block
-   too, equal to the oracle; a card and a CPU Database fed the same 4,096 series
-   x 720 scrapes write identical volume files (sha256); entry and hot
+   too, equal to the oracle; a card and a CPU Database fed the same 1,024 series
+   x 240 scrapes write identical volume files (sha256); entry and hot
    samples/s with the entry's host rows, device time per append (CUDA
    events), one profiled scrape, drain and encode times per shard,
    fileset write time, peak memory;
 15. PromQL over the storage node: phase 12's config #5 counters written
-   into one open block (the first 87 scrapes through
+   into one open block (the first 40 scrapes through
    ``write_tagged_batch``, index insert and commit log; the rest through
    the shard buffers), then ``histogram_quantile(0.99,
    rate(m3_req_bucket[5m]))`` over 1 h at 15 s through
    ``Engine(DatabaseStorage(db))`` on the card: (a) from the open block,
    equal bit for bit to the engine over the in-memory block; (b) after
-   the flush, over the 10 % of groups whose label ends in 0, equal to
+   the flush, over the 1 % of groups whose label ends in 00, equal to
    (a) within rtol 1e-12, its points read equal bit for bit to the
    codec's host decode of the volumes; eval wall with the host rows
-   (index query, per-series reads, upload), device busy, peak memory.
+   (index query, per-series reads, upload), device busy, peak memory;
+16. the coordinator downsampler at BASELINE config #3's width: 1,000,000
+   counters ``http_requests_total`` over {app: 100, endpoint: 20,
+   status_code: 5, instance: 100}, integer deltas in [0, 1000), 10 s
+   scrapes over three one-minute windows (two scrapes a window, cut from
+   six), all through ``Downsampler.write_batch`` on the card, with M3's
+   documented coordinator rules: a mapping rule to ``1m:48h``, a rollup
+   to Sum by (app, endpoint, status_code) then Add, and a two-stage
+   rollup (by route, then Sum by app, one window later), into a storage
+   node whose output namespace ``1m:2d`` was made with
+   ``ensure_namespace``; every flushed row against a numpy oracle; a
+   checkpoint after the fifth scrape (window 2 half written)
+   restored into a fresh Downsampler
+   (sharing the first one's rule-match cache) that takes the later
+   scrapes: its flushed batches equal the uninterrupted run's bit for
+   bit; a tick past the block's end plus bufferPast warm-flushes the
+   output namespace (kernel #1 held against its plain version on its
+   inputs) and every volume, decoded on the card (kernel #2, held
+   likewise), equals the oracle; the same rules over the first 2^16
+   series and one window (two scrapes) on the card and on the CPU write
+   sha256-identical files;
+   write_batch samples/s with host rows (match, grouping, resolve, arena
+   add), flush seconds a window with consume, ``_apply_tails`` and
+   writeback, checkpoint bytes and seconds, one profiled write_batch,
+   peak memory;
+17. the aggregator's entry point with the native resolver
+   (``MetricMap(use_native=True)``: a build failure fails the phase)
+   against the Python one on phase 7's traffic (the first scrape a type):
+   the same slots, samples/s of each; then 10^5 counters on four shards
+   whose two-stage Sum tails forward by the next stage's id, on the f64
+   layout (kernels #3 and #4 held against their plain versions on every
+   call) and on the packed one: every stage-2 total exact, no stage-1
+   aggregate flushed locally.
 
 Each kernel record carries ``launches`` (phase 3's pass or phase 7's
 drive), ``query_launches`` (phase 13), ``storage_launches`` (phase
 14's write, flush, read and restart: kernel #1 once per shard per warm
-flush, no other) and ``storage_check_launches`` (phase 14's volume
-check: kernel #2).  The last three lines are a JSON line of kernel records, the card's name
+flush, no other), ``storage_check_launches`` (phase 14's volume
+check: kernel #2) and ``downsample_launches`` (phases 16-17; each must
+be above 0).  The last three lines are a JSON line of kernel records, the card's name
 and power limit, and the result line ``{"ok": true, "device": {...}}``.
 Exact comparisons throughout, except where a phase names its tolerance.
 """
@@ -1752,12 +1785,13 @@ BLOCK = 2 * 3600 * SEC  # NamespaceOptions() block size
 STORE_START = (1_700_000_000 * SEC) // BLOCK * BLOCK  # a block boundary
 STORE_SCRAPE = 10 * SEC
 STORE_SERIES = 100_000  # config #2's width
-STORE_ENTRY_SCRAPES = 240  # of the 720 through Database.write_batch
-STORE_TAIL_SCRAPES = 60  # of the next block, replayed from the commit log
-STORE_CHECK_SERIES = 4096  # the card-vs-CPU Database
+STORE_ENTRY_SCRAPES = 120  # of the 720 through Database.write_batch (PERF.md §4)
+STORE_TAIL_SCRAPES = 30  # of the next block, replayed from the commit log (PERF.md §4)
+STORE_CHECK_SERIES = 1024  # the card-vs-CPU Database (PERF.md §4)
+STORE_CHECK_SCRAPES = 240  # its scrapes (PERF.md §4)
 STORE_READ_SAMPLE = 1000
 STORE_FUTURE = 100  # samples beyond bufferFuture
-PROMQL_ENTRY_SCRAPES = 87  # of the 261 (a third) through Database.write_tagged_batch
+PROMQL_ENTRY_SCRAPES = 40  # of the 261 through Database.write_tagged_batch (PERF.md §4)
 
 
 def store_root(name: str) -> Path:
@@ -2180,7 +2214,7 @@ def storage_node(seed: int, S: int, dev, card: str) -> tuple:
 
     # card and CPU Databases fed the same traffic write the same bytes
     t0 = time.perf_counter()
-    small = StorageTraffic(seed + 1, STORE_CHECK_SERIES)
+    small = StorageTraffic(seed + 1, STORE_CHECK_SERIES, STORE_CHECK_SCRAPES)
     digests = []
     for d in (dev, "cpu"):
         r = store_root(f"phase14-{torch.device(d).type}")
@@ -2234,8 +2268,8 @@ def promql_over_storage(seed: int, G: int, B: int, dev, card: str) -> dict:
     through ``Engine(DatabaseStorage(db))`` on the card, (a) from the
     open block (the samples in the device buffer), equal to the same
     engine over the in-memory block of phase 12; (b) after ``tick``
-    flushes the block to filesets, over the groups whose label ends in 0
-    (10 %), equal to (a) on those groups within rtol 1e-12, its points
+    flushes the block to filesets, over the groups whose label ends in 00
+    (1 %), equal to (a) on those groups within rtol 1e-12, its points
     read equal bit for bit to the codec's batched host decode of the
     volumes."""
     import torch
@@ -2284,7 +2318,7 @@ def promql_over_storage(seed: int, G: int, B: int, dev, card: str) -> dict:
     q_end = q_start + PROMQL_RANGE
     eng = qe.Engine(DatabaseStorage(db), device=dev)
     mem_eng = qe.Engine(BlockStorage(raw_block(ts, vals, ub_labels, np.arange(S))), device=dev)
-    sel_q = 'histogram_quantile(0.99, rate(m3_req_bucket{group=~".*0"}[5m]))'
+    sel_q = 'histogram_quantile(0.99, rate(m3_req_bucket{group=~".*00"}[5m]))'
     store_rows = ((tdb.Database, "query_ids", "index_query"),
                   (tdb.Database, "read", "series_reads"))
 
@@ -2335,7 +2369,7 @@ def promql_over_storage(seed: int, G: int, B: int, dev, card: str) -> dict:
         f"block bit for bit; " + json.dumps(t_a))
     del mem_eng, want
 
-    # the flush, then (b) over 10 % of the groups from the filesets
+    # the flush, then (b) over 1 % of the groups from the filesets
     t0 = time.perf_counter()
     stats = db.tick(block + BLOCK + 10 * 60 * SEC + SEC)
     torch.cuda.synchronize()
@@ -2343,7 +2377,7 @@ def promql_over_storage(seed: int, G: int, B: int, dev, card: str) -> dict:
     assert stats["default"]["warm_flushed"] == S and stats["default"]["index_sealed"] == 1, stats
     blk_b, t_b = measured(sel_q)
     gb = by_group(blk_b)
-    assert len(gb) == G // 10 and all(g.endswith(b"0") for g in gb)
+    assert len(gb) == G // 100 and all(g.endswith(b"00") for g in gb)
     worst = 0.0
     for g, row in gb.items():
         assert np.array_equal(np.isnan(row), np.isnan(ga[g])), g
@@ -2354,7 +2388,7 @@ def promql_over_storage(seed: int, G: int, B: int, dev, card: str) -> dict:
     le_pos = {u: k for k, u in enumerate(ub_labels)}
     rows = np.asarray([int(m.as_dict()[b"group"][1:]) * B + le_pos[m.as_dict()[b"le"]]
                        for m in raw.series])
-    assert len(rows) == S // 10 and ((rows // B) % 10 == 0).all()
+    assert len(rows) == S // 100 and ((rows // B) % 100 == 0).all()
     streams = {}
     for sh in range(ns.opts.num_shards):
         r = DataFileSetReader(str(root), "default", sh, block, 0)
@@ -2382,6 +2416,645 @@ def promql_over_storage(seed: int, G: int, B: int, dev, card: str) -> dict:
             "hot_samples_per_s": (P - entry) * S / hot_s, "open_block": t_a,
             "flush_s": flush_s, "after_flush": t_b, "after_flush_max_rel_err": worst,
             "snapped_values": snapped}
+
+
+# ---- phases 16-17: the coordinator downsampler, cross-shard forwarding ----
+
+# BASELINE config #3's width: 1,000,000 counters http_requests_total over
+# {app: 100, endpoint: 20, status_code: 5, instance: 100}
+DS_APPS, DS_ENDPOINTS, DS_CODES, DS_INSTANCES = 100, 20, 5, 100
+DS_SERIES = DS_APPS * DS_ENDPOINTS * DS_CODES * DS_INSTANCES
+DS_WINDOWS = 3  # one-minute windows (1m:48h)
+DS_SCRAPES_PER_WINDOW = 2  # of the six 10 s scrapes a minute holds (PERF.md §4)
+DS_CKPT_AFTER = 5  # scrapes written before the checkpoint (window 2 half open)
+DS_CHECK_SERIES = 1 << 16  # the card-vs-CPU pair
+DS_POLICY = "1m:48h"  # its namespace's name is "1m:2d"
+# M3's documented coordinator rollup rules: a mapping rule, a rollup to Sum
+# over a groupBy list then Add, and a two-stage rollup
+DS_RULES = {
+    "namespace": "default", "version": 1,
+    "mapping_rules": [{"name": "M", "filter": "__name__:http_requests_total",
+                       "policies": [DS_POLICY]}],
+    "rollup_rules": [
+        {"name": "R1", "filter": "__name__:http_requests_total", "targets": [{
+            "pipeline": [{"aggregation": "SUM"},
+                         {"rollup": {"new_name": "http_requests_by_route",
+                                     "tags": ["app", "endpoint", "status_code"],
+                                     "aggregation": []}},
+                         {"transformation": "ADD"}],
+            "policies": [DS_POLICY]}]},
+        {"name": "R2", "filter": "__name__:http_requests_total", "targets": [{
+            "pipeline": [{"aggregation": "SUM"},
+                         {"rollup": {"new_name": "stage1",
+                                     "tags": ["app", "endpoint", "status_code"],
+                                     "aggregation": []}},
+                         {"rollup": {"new_name": "http_requests_by_app", "tags": ["app"],
+                                     "aggregation": ["SUM"]}}],
+            "policies": [DS_POLICY]}]},
+    ],
+}
+FWD_SERIES, FWD_STAGE2 = 100_000, 20  # phase 17 (b)
+
+
+class IntoCheck:
+    """Within ``with``, every call of ``si.<attr>`` (an in-place aggregator
+    kernel wrapper, as the arenas look it up) runs as before on the card,
+    and its result columns are then held bit for bit against the plain
+    version run on CPU copies of the same starting columns; the
+    comparison launches no kernel."""
+
+    def __init__(self, attr: str, plain):
+        self.attr, self.plain = attr, plain
+        self.calls = 0
+        self.err = 0.0
+
+    def __enter__(self):
+        from m3_tpu_torch.parallel import segment_ingest as si
+
+        fn = self.fn = getattr(si, attr := self.attr)
+
+        def checked(*a):
+            cols = [c for c in a[:-2]]
+            want = [None if c is None else c.to("cpu", copy=True) for c in cols]
+            fn(*a)
+            self.plain(*want, a[-2].cpu(), a[-1].cpu())
+            for c, w in zip(cols, want):
+                if c is None:
+                    continue
+                assert same_bits(c.cpu(), w), f"{attr} kernel != plain on the path's inputs"
+                self.err = max(self.err, max_abs_err(c.cpu(), w))
+            self.calls += 1
+
+        setattr(si, attr, checked)
+        return self
+
+    def __exit__(self, *exc):
+        from m3_tpu_torch.parallel import segment_ingest as si
+
+        setattr(si, self.attr, self.fn)
+        return False
+
+
+def downsample_docs(n: int):
+    """The first n of the 1,000,000 series as index Documents, in the
+    order (app, endpoint, status_code, instance), instance fastest; and
+    each one's route group (app, endpoint, status_code) and app."""
+    from m3_tpu_torch.index.doc import Document, Field
+
+    name = Field(b"__name__", b"http_requests_total")
+    apps = [b"app-%02d" % a for a in range(DS_APPS)]
+    eps = [b"/api/v1/resource%02d" % e for e in range(DS_ENDPOINTS)]
+    codes = [b"%d" % c for c in (200, 201, 404, 500, 503)]
+    insts = [b"10.0.%d.%d:9100" % (i // 50, i % 50) for i in range(DS_INSTANCES)]
+    f_app = [Field(b"app", v) for v in apps]
+    f_ep = [Field(b"endpoint", v) for v in eps]
+    f_code = [Field(b"status_code", v) for v in codes]
+    f_inst = [Field(b"instance", v) for v in insts]
+    docs = []
+    for s in range(n):
+        s2, i = divmod(s, DS_INSTANCES)
+        s3, c = divmod(s2, DS_CODES)
+        a, e = divmod(s3, DS_ENDPOINTS)
+        sid = (b"http_requests_total{app=" + apps[a] + b",endpoint=" + eps[e]
+               + b",instance=" + insts[i] + b",status_code=" + codes[c] + b"}")
+        docs.append(Document(sid, (name, f_app[a], f_ep[e], f_inst[i], f_code[c])))
+    idx = np.arange(n)
+    route = idx // DS_INSTANCES
+    app = route // (DS_ENDPOINTS * DS_CODES)
+    return docs, route, app
+
+
+class DownsampleTraffic:
+    """Phase 16's seeded scrapes: per scrape, an integer delta in [0, 1000)
+    for each series, at a fixed whole-millisecond offset per series inside
+    its 10 s scrape slot; the numpy oracle of every output."""
+
+    def __init__(self, seed: int, n: int):
+        rng = np.random.default_rng(seed + 16)
+        self.n = n
+        self.K = DS_WINDOWS * DS_SCRAPES_PER_WINDOW
+        self.deltas = rng.integers(0, 1000, (self.K, n)).astype(np.float64)
+        self.offset = rng.integers(0, 10_000, n).astype(np.int64) * 1_000_000
+        self.t0 = STORE_START  # a block boundary: every output lies in one block
+
+    def ts(self, k: int) -> np.ndarray:
+        w, j = divmod(k, DS_SCRAPES_PER_WINDOW)
+        return self.t0 + w * MINUTE + j * 10 * SEC + self.offset
+
+    def window_sums(self, route, app) -> dict:
+        """(window sums per series, R1's running totals per route, R2's
+        per-app sums): integers, exact in f64."""
+        win = self.deltas.reshape(DS_WINDOWS, DS_SCRAPES_PER_WINDOW, self.n).sum(axis=1)
+        groups = DS_APPS * DS_ENDPOINTS * DS_CODES
+        by_route = np.stack([np.bincount(route, w, minlength=groups) for w in win])
+        by_app = np.stack([np.bincount(app, w, minlength=DS_APPS) for w in win])
+        return {"win": win, "r1": np.cumsum(by_route, axis=0), "r2": by_app}
+
+
+def ds_canon(outs) -> list:
+    """Flushed batches as comparable tuples (value bits)."""
+    return [(fm.timestamp_nanos, int(fm.metric_type), fm.slots.tobytes(),
+             fm.types.tobytes(), np.asarray(fm.values, np.float64).tobytes()) for fm in outs]
+
+
+def ds_output_ids(docs, route, app) -> tuple:
+    """id -> series row; R1 output id -> route group; the stage-1 ids; R2
+    output id (before its ``.sum`` suffix) -> app."""
+    row = {d.id: i for i, d in enumerate(docs)}
+    r1, s1, r2 = {}, set(), {}
+    for g in np.unique(route).tolist():
+        t = docs[int(np.searchsorted(route, g))].tags()
+        key = b"app=%s,endpoint=%s,status_code=%s" % (t[b"app"], t[b"endpoint"],
+                                                        t[b"status_code"])
+        r1[b"http_requests_by_route{" + key + b"}"] = g
+        s1.add(b"stage1{" + key + b"}")
+    for a in np.unique(app).tolist():
+        r2[b"http_requests_by_app{app=%s}" % docs[int(np.searchsorted(app, a))].tags()[b"app"]] = a
+    return row, r1, s1, r2
+
+
+def ds_check_outputs(ml, outs, traffic, ids, route, app) -> dict:
+    """Every flushed row of the 1m list against the numpy oracle: each
+    series' window sum, R1's running totals, R2's per-app sums one window
+    later; no stage-1 row flushes; nothing else."""
+    from m3_tpu_torch.metrics.aggregation import AggregationType as AT
+    from m3_tpu_torch.metrics.types import MetricType as MT
+
+    oracle = traffic.window_sums(route, app)
+    row, r1_ids, s1_ids, r2_ids = ids
+    cmap, gmap = ml.maps[MT.COUNTER], ml.maps[MT.GAUGE]
+    # slot -> (kind, index) once: 0 a series, 1 an R1 route, 2 a stage-1 id
+    kind = np.full(ml.opts.capacity, -1, np.int64)
+    index = np.zeros(ml.opts.capacity, np.int64)
+    for s_ in range(ml.opts.capacity):
+        sid = cmap.id_of(s_)
+        if sid is None:
+            continue
+        if sid in row:
+            kind[s_], index[s_] = 0, row[sid]
+        elif sid in r1_ids:
+            kind[s_], index[s_] = 1, r1_ids[sid]
+        elif sid in s1_ids:
+            kind[s_] = 2
+    counts = {"series_rows": 0, "r1_rows": 0, "r2_rows": 0}
+    for fm in outs:
+        w = (fm.timestamp_nanos - traffic.t0) // MINUTE - 1
+        if fm.metric_type == MT.COUNTER:
+            assert (fm.types == int(AT.SUM)).all()
+            k, ix = kind[fm.slots], index[fm.slots]
+            assert not (k == 2).any(), "a stage-1 aggregate flushed locally"
+            assert (k >= 0).all(), "an unknown counter row"
+            m0, m1 = k == 0, k == 1
+            assert np.array_equal(fm.values[m0], oracle["win"][w][ix[m0]]), w
+            assert np.array_equal(fm.values[m1], oracle["r1"][w][ix[m1]]), w
+            counts["series_rows"] += int(m0.sum())
+            counts["r1_rows"] += int(m1.sum())
+        else:
+            assert fm.metric_type == MT.GAUGE and (fm.types == int(AT.SUM)).all()
+            for s_, v in zip(fm.slots.tolist(), fm.values.tolist()):
+                a = r2_ids[gmap.id_of(s_)]
+                assert v == oracle["r2"][w - 1][a], (w, a)  # one window later
+                counts["r2_rows"] += 1
+    want = {"series_rows": traffic.n * DS_WINDOWS, "r1_rows": len(r1_ids) * DS_WINDOWS,
+            "r2_rows": len(r2_ids) * DS_WINDOWS}
+    assert counts == want, (counts, want)
+    return counts
+
+
+def ds_check_volumes(db, traffic, ids, route, app, dev) -> dict:
+    """Every output volume decoded on the card (kernel #2) against the
+    oracle: each series' three window sums, R1's running totals, R2's
+    per-app sums (name suffix ``.sum``) one window later, at the
+    window-end timestamps; every output series present once."""
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.persist.fs import DataFileSetReader
+
+    oracle = traffic.window_sums(route, app)
+    row, r1_ids, _, r2_ids = ids
+    ns = "1m:2d"
+    sids, segs = [], []
+    for sh, bs, v in fileset_volumes(db.opts.root, ns):
+        r = DataFileSetReader(db.opts.root, ns, sh, bs, v)
+        for sid, seg in r.read_all():
+            sids.append(sid)
+            segs.append(seg)
+        r.close()
+    d_ts, d_vals, counts, dfb = mt.decode_batch(segs, 4, device=dev)
+    assert not dfb.any() and (counts == DS_WINDOWS).all()
+    ends = traffic.t0 + MINUTE * np.arange(1, DS_WINDOWS + 1)
+    rows = np.fromiter((row.get(sid, -1) for sid in sids), np.int64, len(sids))
+    series = rows >= 0
+    want_t = np.broadcast_to(ends, (len(sids), DS_WINDOWS)).copy()
+    want_v = np.empty((len(sids), DS_WINDOWS), np.float64)
+    want_v[series] = oracle["win"][:, rows[series]].T
+    n = {"series": int(series.sum()), "r1": 0, "r2": 0}
+    for j in np.nonzero(~series)[0].tolist():
+        sid = sids[j]
+        if sid in r1_ids:
+            want_v[j] = oracle["r1"][:, r1_ids[sid]]
+            n["r1"] += 1
+        else:
+            assert sid.endswith(b".sum") and sid[:-4] in r2_ids, sid
+            want_t[j], want_v[j] = ends + MINUTE, oracle["r2"][:, r2_ids[sid[:-4]]]
+            n["r2"] += 1
+    assert len(set(sids)) == len(sids)
+    assert n == {"series": traffic.n, "r1": len(r1_ids), "r2": len(r2_ids)}, n
+    assert np.array_equal(d_ts[:, :DS_WINDOWS], want_t), "volume timestamps"
+    assert np.array_equal(d_vals[:, :DS_WINDOWS].view(np.int64), want_v.view(np.int64)), \
+        "volume values"
+    return {"volume_series": n, "volume_points": int(counts.sum())}
+
+
+def ds_steps(traffic) -> list:
+    """The phase's sequence: ("write", k) for each scrape, ("flush", now)
+    whenever a window is complete, and one more flush for R2's stage 2
+    of the last window."""
+    steps = []
+    for k in range(traffic.K):
+        steps.append(("write", k))
+        if (k + 1) % DS_SCRAPES_PER_WINDOW == 0:
+            steps.append(("flush", traffic.t0 + (k + 1) // DS_SCRAPES_PER_WINDOW * MINUTE))
+    steps.append(("flush", traffic.t0 + (DS_WINDOWS + 1) * MINUTE))
+    return steps
+
+
+def ds_run(ds, traffic, docs, steps, clock=None, split=None, profile_k=None, after=None,
+           flush=None) -> dict:
+    """``steps`` (see ``ds_steps``) through ``Downsampler.write_batch``
+    and ``Downsampler.flush`` (or ``flush(now)``).  With ``clock``, its
+    rows' seconds during the writes and during the flushes add into
+    ``split["write"]`` and ``split["flush"]``.  Scrape ``profile_k`` runs
+    under torch.profiler; ``after(step)`` runs after each step.  Returns
+    seconds and the profile."""
+    import torch
+
+    from m3_tpu_torch.metrics.types import MetricType as MT
+
+    flush = flush or (lambda now: ds.flush(now))
+    out = {"write_s": [], "flush_s": [], "prof": None}
+
+    def timed(kind, fn):
+        before = dict(clock.s) if clock is not None else {}
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out[kind + "_s"].append(time.perf_counter() - t0)
+        if clock is not None:
+            acc = split.setdefault(kind, {})
+            for key, v in clock.s.items():
+                acc[key] = acc.get(key, 0.0) + v - before.get(key, 0.0)
+
+    def write(k):
+        keep = ds.write_batch(docs, traffic.ts(k), traffic.deltas[k], metric_type=MT.COUNTER)
+        assert keep.all()
+
+    for step in steps:
+        kind, arg = step
+        if kind == "write" and arg == profile_k:
+            out["prof"] = profiled(lambda: write(arg), tries=1)
+        elif kind == "write":
+            timed("write", lambda: write(arg))
+        else:
+            timed("flush", lambda: flush(arg))
+        if after is not None:
+            after(step)
+    return out
+
+
+def downsampler_phase(seed: int, dev, card: str) -> tuple:
+    """Phase 16: the coordinator downsampler over the storage node at
+    BASELINE config #3's width.  Returns (times, the four kernels'
+    launches in the phase, kernel #1's and #2's records there)."""
+    import torch
+
+    from m3_tpu_torch.aggregator import engine as te
+    from m3_tpu_torch.coordinator import downsample as tds
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.metrics import rules as trules
+    from m3_tpu_torch.metrics import rules_json
+    from m3_tpu_torch.parallel import decode_gather, encode_place
+    from m3_tpu_torch.storage import database as tdb
+
+    t_gen = time.perf_counter()
+    docs, route, app = downsample_docs(DS_SERIES)
+    traffic = DownsampleTraffic(seed, DS_SERIES)
+    ids = ds_output_ids(docs, route, app)
+    rules = rules_json.ruleset_from_json(DS_RULES)
+    K = traffic.K
+    log(f"phase16 data: {DS_SERIES:,} counters, {K} scrapes over {DS_WINDOWS} one-minute "
+        f"windows ({K * DS_SERIES:,} samples); generated in {time.perf_counter() - t_gen:.1f} s")
+    ns_opts = tdb.NamespaceOptions(slot_capacity=1 << 18, sample_capacity=1 << 20)
+    ds_opts = tds.DownsamplerOptions(capacity=1 << 20)
+
+    def node(name, d):
+        root = store_root(name)
+        db = tdb.Database(tdb.DatabaseOptions(root=str(root)), device=d)
+        db.ensure_namespace("1m:2d", ns_opts)
+        return root, db, tds.Downsampler(db, rules, opts=ds_opts, now_nanos=traffic.t0,
+                                         device=d)
+
+    root, db, ds = node("phase16", dev)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    captured: list = []  # every consume's output, in order
+    real_consume = te.MetricList.consume
+
+    def capture(self, *a, **kw):
+        out = real_consume(self, *a, **kw)
+        captured.append(out)
+        return out
+
+    te.MetricList.consume = capture
+    clock = HostClock()
+    for owner, attr, key in ((trules.Matcher, "match", "match"),
+                             (te.MetricMap, "resolve", "resolve"),
+                             (te.MetricList, "add_batch_slots", "arena_add"),
+                             (tds.Downsampler, "_write_batch_locked", "grouping"),
+                             (te.MetricList, "consume", "consume"),
+                             (te.MetricList, "_apply_tails", "apply_tails"),
+                             (tdb.Database, "write_tagged_batch", "writeback_db"),
+                             (tds.Downsampler, "_flush_locked", "writeback_host")):
+        clock.wrap(owner, attr, key)
+    ckpt = ROOT / "build" / "phase16.ckpt"
+    saved: dict = {}
+
+    steps = ds_steps(traffic)
+    ckpt_step = steps.index(("write", DS_CKPT_AFTER - 1))
+
+    def after(step):
+        if step == steps[ckpt_step]:
+            t0 = time.perf_counter()
+            saved["bytes"] = ds.checkpoint_to(ckpt)
+            saved["save_s"] = time.perf_counter() - t0
+            saved["consumes"] = len(captured)
+
+    split: dict = {}
+    try:
+        run = ds_run(ds, traffic, docs, steps, clock=clock, split=split,
+                     profile_k=K - 1, after=after)
+    finally:
+        clock.restore()
+        te.MetricList.consume = real_consume
+    torch.cuda.synchronize()
+    (ml,) = ds._lists.values()
+    outs = [fm for o in captured for fm in o]
+    counts = ds_check_outputs(ml, outs, traffic, ids, route, app)
+    n_written = sum(fm.slots.size for fm in outs)
+    log(f"phase16 every flushed row == the numpy oracle: {counts}")
+
+    # a fresh Downsampler restored from the checkpoint takes the later
+    # scrapes: its flushed batches equal the uninterrupted run's bit for
+    # bit.  It shares the first one's rule-match cache (rules x tags only):
+    # re-matching 1M ids would only repeat the first scrape's matching.
+    after_ckpt = [fm for o in captured[saved["consumes"]:] for fm in o]
+    ds2 = tds.Downsampler(db, rules, opts=ds_opts, now_nanos=traffic.t0, device=dev)
+    ds2.matcher = ds.matcher
+    t0 = time.perf_counter()
+    ds2.restore_from(ckpt)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    ckpt.unlink()
+    restored: list = []
+
+    def consume_only(now):
+        for ml2 in ds2._lists.values():
+            restored.extend(ml2.consume(now))
+
+    run2 = ds_run(ds2, traffic, docs, steps[ckpt_step + 1:], flush=consume_only)
+    assert ds_canon(restored) == ds_canon(after_ckpt), "restored run != uninterrupted run"
+    log(f"phase16 checkpoint after scrape {DS_CKPT_AFTER}: {saved['bytes']:,} bytes, saved in "
+        f"{saved['save_s']:.2f} s, restored in {restore_s:.2f} s; the restored Downsampler's "
+        f"{len(restored)} flushed batches == the uninterrupted run's bit for bit")
+    del ds2, restored, after_ckpt
+
+    # the output namespace's warm flush (kernel #1 held against its plain
+    # version), then every volume decoded on the card (kernel #2)
+    t0 = time.perf_counter()
+    with KernelCheck(mt, "place_words", encode_place.place_words_plain) as pcheck:
+        tick = db.tick(traffic.t0 + BLOCK + 10 * MINUTE + SEC)
+    torch.cuda.synchronize()
+    tick_s = time.perf_counter() - t0
+    assert pcheck.calls > 0, tick
+    t0 = time.perf_counter()
+    with KernelCheck(mt, "extract_fields64_t", decode_gather.extract_fields64_t_plain) as dcheck:
+        vols = ds_check_volumes(db, traffic, ids, route, app, dev)
+    check_s = time.perf_counter() - t0
+    launched = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    db.close()
+    log(f"phase16 tick {tick} in {tick_s:.1f} s: kernel #1 == plain in {pcheck.calls} calls; "
+        f"volumes decoded on the card == the oracle {vols} ({check_s:.1f} s); kernel #2 == "
+        f"plain in {dcheck.calls} calls; launches {launched}")
+    frags, keys, w_out = pcheck.args
+    records = {
+        "place_words": {
+            "downsample_ms": cuda_ms(lambda: pcheck.fn(frags, keys, w_out)),
+            "downsample_plain_ms": cuda_ms(lambda: encode_place.place_words_plain(
+                frags, keys, w_out)),
+            "downsample_bound_ms": (frags.numel() * (8 + 4) + frags.shape[0] * w_out * 8)
+            / HBM_BYTES_PER_S * 1e3,
+            "downsample_shape": [list(frags.shape), w_out], "max_abs_err": pcheck.err},
+        "extract_fields64_t": {f"downsample_{k[4:]}": v for k, v in dcheck.summary().items()},
+    }
+    records["extract_fields64_t"]["max_abs_err"] = dcheck.err
+    del pcheck, dcheck, frags, keys
+
+    # card and CPU pairs fed the first 2^16 series over the first window
+    # (and the flush of its stage 2) write the same bytes
+    t0 = time.perf_counter()
+    n = DS_CHECK_SERIES
+    small = DownsampleTraffic(seed, DS_SERIES)
+    small.n, small.deltas, small.offset = n, small.deltas[:, :n], small.offset[:n]
+    small.K = DS_SCRAPES_PER_WINDOW
+    digests, matcher = [], None
+    for d in (dev, "cpu"):
+        r, sdb, sds = node(f"phase16-{torch.device(d).type}", d)
+        if matcher is not None:
+            sds.matcher = matcher  # the same rules over the same tags
+        matcher = sds.matcher
+        ds_run(sds, small, docs[:n], ds_steps(small))
+        sdb.tick(traffic.t0 + BLOCK + 10 * MINUTE + SEC)
+        sdb.close()
+        digests.append(volume_digests(r))
+    assert digests[0] == digests[1] and any("1m:2d" in k for k in digests[0])
+    pair_s = time.perf_counter() - t0
+    log(f"phase16 card and CPU Downsamplers over the first {n} series and one window wrote "
+        f"identical files ({len(digests[0])}, sha256; {pair_s:.1f} s)")
+
+    samples = K * DS_SERIES
+    write_total = sum(run["write_s"]) + run["prof"]["wall_s"]
+    w_split = split.get("write", {})
+    f_split = split.get("flush", {})
+    prof = run["prof"]
+    t = {"series": DS_SERIES, "scrapes": K, "samples": samples,
+         "write_samples_per_s": samples / write_total,
+         "write_s_per_scrape": run["write_s"], "first_scrape_s": run["write_s"][0],
+         **{f"write_split_{k}_s": v for k, v in w_split.items()
+            if k in ("match", "resolve", "arena_add", "grouping")},
+         "flush_s_per_window": run["flush_s"], "flushed_rows": n_written,
+         **{f"flush_split_{k}_s": v for k, v in f_split.items() if v},
+         "checkpoint_bytes": saved["bytes"], "checkpoint_save_s": saved["save_s"],
+         "checkpoint_restore_s": restore_s,
+         "restored_write_s_per_scrape": run2["write_s"],
+         "profiled_write_wall_ms": prof["wall_s"] * 1e3,
+         "profiled_write_device_busy_ms": prof["busy_s"] * 1e3,
+         "profiled_write_idle_share": 1 - prof["busy_s"] / prof["wall_s"],
+         "profiled_write_device_ops": prof["ops"],
+         "tick_s": tick_s, "volume_check_s": check_s, "card_cpu_pair_s": pair_s,
+         "peak_mem_gib": peak / 2**30}
+    log(f"phase16 [{card}] downsampler: " + json.dumps(t))
+    return t, launched, records
+
+
+def forwarding_phase(seed: int, n: int, dev, card: str) -> tuple:
+    """Phase 17: (a) phase 7's traffic (n series a type) through ``Aggregator.add_untimed_batch``
+    with the native resolver (``use_native=True``: a build failure fails
+    the phase) and with the Python one: the same slots, samples/s of
+    each; (b) ``Aggregator(num_shards=4)`` on the f64 layout, then the
+    packed one, 10^5 counters whose two-stage Sum tails forward by the
+    next stage's id across shards: every stage-2 total exact,
+    no stage-1 aggregate flushed locally, and on the f64 run kernels #3
+    and #4 held against their plain versions.  Returns (times, the
+    checks of kernels #3 and #4)."""
+    import torch
+
+    from m3_tpu_torch.aggregator import engine as te
+    from m3_tpu_torch.metrics.aggregation import AggregationID, AggregationType as AT
+    from m3_tpu_torch.metrics.pipeline import AppliedRollupOp, Pipeline
+    from m3_tpu_torch.metrics.policy import StoragePolicy
+    from m3_tpu_torch.metrics.types import MetricType as MT
+    from m3_tpu_torch.parallel import segment_ingest as si
+
+    t: dict = {}
+    data = agg_traffic(np.random.default_rng(seed), n)
+    policy = StoragePolicy.parse(AGG_POLICY)
+    opts = te.AggregatorOptions(capacity=1 << 20, num_windows=2, timer_sample_capacity=1 << 24,
+                                storage_policies=(policy,))
+    slots = {}
+    for native in (True, False):
+        agg = te.Aggregator(num_shards=1, opts=opts, device=dev)
+        ml = agg.shards[0].lists[policy]
+        for mt in list(ml.maps):
+            ml.maps[mt] = te.MetricMap(opts.capacity, use_native=native)
+        assert all(m.native == native for m in ml.maps.values())
+        batches = []
+        for mt, (k, aid, _) in agg_kinds().items():
+            times, vals, perms, _, sids = data[mt]
+            for j in range(1):  # the creating scrape (PERF.md §4)
+                p = perms[j]
+                batches.append((mt, [sids[i] for i in p], vals[j][p], times[j][p], aid))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for mt, b_ids, b_vals, b_times, aid in batches:
+            agg.add_untimed_batch(mt, b_ids, b_vals, b_times, aid)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        tag = "native" if native else "python"
+        t[f"entry_{tag}_samples_per_s"] = sum(len(b[1]) for b in batches) / dt
+        t[f"entry_{tag}_s"] = dt
+        slots[native] = {int(mt): [m.id_of(s) for s in range(n)] for mt, m in ml.maps.items()}
+        del agg, ml, batches
+        torch.cuda.empty_cache()
+    assert slots[True] == slots[False], "native and Python resolvers assign different slots"
+    log(f"phase17 (a) [{card}] entry point, one scrape x 3 types x {n:,} series: native "
+        f"{t['entry_native_samples_per_s']:,.0f} samples/s, Python "
+        f"{t['entry_python_samples_per_s']:,.0f} samples/s; the same slots")
+    del slots, data
+
+    # (b) stage 1 -> stage 2 across four shards
+    sp = StoragePolicy.parse("10s:2d")
+    r = 10 * SEC
+    sum_id = AggregationID.compress([AT.SUM])
+    rng = np.random.default_rng(seed + 17)
+    vals = rng.integers(0, 1000, (2, FWD_SERIES)).astype(np.float64)
+    s2_of = np.arange(FWD_SERIES) % FWD_STAGE2
+    s1_ids = [b"fwd.s1.%06d" % i for i in range(FWD_SERIES)]
+    s2_ids = [b"fwd.s2.%04d" % g for g in range(FWD_STAGE2)]
+    pipes = [Pipeline((AppliedRollupOp(s2_ids[g], sum_id),)) for g in range(FWD_STAGE2)]
+    # a stage-1 aggregate of window w forwards at the window's end and
+    # flushes as stage 2 one window later
+    want = {(sid, T0_AGG + (w + 2) * r): float(v) for w in range(2)
+            for sid, v in zip(s2_ids, np.bincount(s2_of, vals[w], minlength=FWD_STAGE2))}
+    checks: dict = {}
+    for layout in ("f64", "packed"):
+        agg = te.Aggregator(num_shards=4, opts=te.AggregatorOptions(
+            capacity=1 << 15, num_windows=4, timer_sample_capacity=1 << 12, layout=layout,
+            storage_policies=(sp,)), device=dev)
+        groups: dict = {}
+        for i, sid in enumerate(s1_ids):
+            groups.setdefault((agg.shard_index(sid), int(s2_of[i])), []).append(i)
+        got: dict = {}
+
+        def handler(ml_, fm):
+            assert fm.metric_type == MT.GAUGE, "a stage-1 aggregate flushed locally"
+            assert (fm.types == int(AT.SUM)).all()
+            gmap = ml_.maps[MT.GAUGE]
+            for s_, v in zip(fm.slots.tolist(), fm.values.tolist()):
+                key = (gmap.id_of(s_), fm.timestamp_nanos)
+                assert key not in got, key
+                got[key] = v
+
+        ctx = ([IntoCheck("segment_ingest_into", si.segment_ingest_into_plain),
+                IntoCheck("segment_minmax_into", si.segment_minmax_into_plain)]
+               if layout == "f64" else [])
+        for c in ctx:
+            c.__enter__()
+        t0 = time.perf_counter()
+        try:
+            for w in range(2):
+                for (sh, g), rows in groups.items():
+                    agg.shards[sh].lists[sp].add_batch(
+                        MT.COUNTER, [s1_ids[i] for i in rows], vals[w][rows],
+                        np.full(len(rows), T0_AGG + w * r + SEC, np.int64), sum_id,
+                        pipeline=pipes[g])
+            for k in range(1, 5):
+                agg.consume(T0_AGG + k * r, flush_handler=handler)
+            torch.cuda.synchronize()
+        finally:
+            for c in reversed(ctx):
+                c.__exit__(None, None, None)
+        t[f"forward_{layout}_s"] = time.perf_counter() - t0
+        assert got == want, "stage-2 totals != the oracle"
+        assert agg.counters()["forward_errors"] == 0
+        if ctx:
+            assert all(c.calls > 0 for c in ctx), [c.calls for c in ctx]
+            checks = {"segment_ingest": ctx[0], "segment_minmax": ctx[1]}
+        log(f"phase17 (b) {layout}: {FWD_SERIES:,} counters -> {FWD_STAGE2} stage-2 sums "
+            f"across 4 shards, every stage-2 total == the oracle, no stage-1 "
+            f"row flushed ({t[f'forward_{layout}_s']:.1f} s)"
+            + (f"; kernels #3/#4 == plain in {[c.calls for c in ctx]} calls" if ctx else ""))
+        del agg
+    log(f"phase17 [{card}] aggregator: " + json.dumps(t))
+    return t, checks
+
+
+def downsample_phases(kernels: list, seed: int, agg_series: int, dev, card: str) -> None:
+    """Phases 16-17, then each kernel record's ``downsample_launches`` (its
+    launches in the two phases) and its checks there."""
+    import torch
+
+    t0 = time.perf_counter()
+    ds_t, ds_launched, ds_records = downsampler_phase(seed, dev, card)
+    log(f"phase16 done in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    zero_launches()
+    t0 = time.perf_counter()
+    fwd_t, fwd_checks = forwarding_phase(seed, agg_series, dev, card)
+    fwd_launched = read_launches()
+    log(f"phase17 done in {time.perf_counter() - t0:.1f} s; launches {fwd_launched}")
+    for k in kernels:
+        name = k["name"]
+        k["downsample_launches"] = ds_launched[name] + fwd_launched[name]
+        rec = dict(ds_records.get(name, {}))
+        err = rec.pop("max_abs_err", 0)
+        if name in fwd_checks:
+            err = max(err, fwd_checks[name].err)
+            rec["downsample_checked_calls"] = fwd_checks[name].calls
+        k["max_abs_err"] = max(k.get("max_abs_err", 0), err)
+        k.update(rec)
+    assert all(k["downsample_launches"] > 0 for k in kernels), \
+        {k["name"]: k["downsample_launches"] for k in kernels}
+    log(f"phase17 [{card}] downsample path: " + json.dumps({"phase16": ds_t, "phase17": fwd_t}))
 
 
 def main() -> int:
@@ -2692,6 +3365,10 @@ def main() -> int:
             k.update(place_store)
     log(f"phase15 [{card}] storage node: " + json.dumps({"phase14": store_t,
                                                           "phase15": promql_store_t}))
+    torch.cuda.empty_cache()
+
+    # ---- phases 16-17: the coordinator downsampler, forwarding ----
+    downsample_phases(kernels, args.seed, args.agg_series, dev, card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -115,6 +115,26 @@ def _scatter_max_drop(col, slots, vals):
                         torch.where(ok, vals, I64_MIN), "amax", include_self=True)
 
 
+def saturating_int64(v):
+    """Float to int64 as XLA converts (the reference's ``astype(int64)`` of
+    counter values): toward zero, NaN to 0, out of range to the nearest
+    bound.  torch's own cast leaves NaN and out-of-range values
+    implementation-defined (INT64_MIN on the CPU).  A numpy array is cast
+    on the host, a tensor where it lies."""
+    if isinstance(v, np.ndarray):
+        big = v >= 2.0**63
+        small = v <= -(2.0**63)
+        out = np.where(np.isnan(v) | big | small, 0.0, v).astype(np.int64)
+        out[big] = I64_MAX
+        out[small] = I64_MIN
+        return out
+    big = v >= 2.0**63
+    small = v <= -(2.0**63)
+    out = torch.where(torch.isnan(v) | big | small, torch.zeros_like(v), v).to(torch.int64)
+    out = torch.where(big, torch.full_like(out, I64_MAX), out)
+    return torch.where(small, torch.full_like(out, I64_MIN), out)
+
+
 def pad_slots(slots: np.ndarray, capacity: int) -> np.ndarray:
     """Pad a slot array to the next power of two with the drop sentinel
     ``capacity`` (the JAX package bounds its jit shapes this way; the
@@ -689,8 +709,16 @@ class _Arena:
         return torch.as_tensor(x, device=self.device).to(dtype)
 
     def _batch(self, windows, slots, values, times, value_dtype):
+        if isinstance(values, torch.Tensor):
+            floating = values.is_floating_point()
+        else:
+            values = np.asarray(values)
+            floating = values.dtype.kind == "f"
+        if value_dtype == torch.int64 and floating:
+            values = saturating_int64(values)
+        v = self._t(values, value_dtype)
         return (self._t(windows, torch.int32), self._t(slots, torch.int32),
-                self._t(values, value_dtype), self._t(times, torch.int64))
+                v, self._t(times, torch.int64))
 
     def _slots(self, slots):
         return self._t(pad_slots(np.asarray(slots), self.capacity), torch.int32)

@@ -1,5 +1,6 @@
 """Core metric types: the port's copy of ``m3_tpu/metrics/types.py``
-(``MetricType``, ``Datapoint``).
+(``MetricType``, ``Datapoint``,
+``EMPTY_DATAPOINT``).
 
 Reference parity: ``src/metrics/metric/types.go:31-45`` defines the metric
 type enum (unknown/counter/timer/gauge).
@@ -26,3 +27,6 @@ class Datapoint:
 
     time_nanos: int
     value: float
+
+
+EMPTY_DATAPOINT = Datapoint(0, float("nan"))

@@ -759,6 +759,24 @@ class Database:
         ns = self.namespaces[namespace]
         return ns.owned
 
+    def ensure_namespace(self, name: str,
+                         opts: NamespaceOptions | None = None) -> Namespace:
+        """Create-if-missing (the reference adds namespaces dynamically
+        through KV-watched namespace metadata, dbnode/namespace/dynamic.go;
+        the coordinator provisions aggregated namespaces per policy).  A
+        new namespace takes this database's device, new-series limiter and
+        corruption hook."""
+        with self._mu:
+            ns = self.namespaces.get(name)
+            if ns is None:
+                ns = self.namespaces[name] = Namespace(
+                    name, opts or NamespaceOptions(), self.opts.root,
+                    self.block_cache,
+                    new_series_limiter=self.new_series_limiter,
+                    corruption_cb=self._note_corruption, device=self.device,
+                )
+            return ns
+
     def write_batch(self, namespace: str, ids: Sequence[bytes], ts, vals,
                     now_nanos: int | None = None) -> int:
         ns = self.namespaces[namespace]

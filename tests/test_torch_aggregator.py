@@ -216,8 +216,10 @@ def test_murmur3_and_policies_match_jax():
 
 def test_unported_options_raise():
     """The layouts: None, "auto" and "packed" build the packed arenas, an
-    unknown layout raises ValueError.  Then the options still unported
-    raise, and passthrough without a handler."""
+    unknown layout raises ValueError.  A creation limit builds one limiter
+    shared by every map; a tail op the port cannot run (an unsupported
+    transformation, or an op of another package's pipeline) raises, an
+    empty pipeline does not; passthrough without a handler raises."""
     from m3_tpu_torch.aggregator import packed as tp
 
     pols = (tpol.StoragePolicy.parse("10s:2d"),)
@@ -232,13 +234,19 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="unknown arena layout"):
         te.Aggregator(opts=te.AggregatorOptions(capacity=8, layout="packd",
                                                 storage_policies=pols), device="cpu")
-    with pytest.raises(NotImplementedError, match="limiter"):
-        te.Aggregator(opts=te.AggregatorOptions(capacity=8, layout="f64",
-                                                new_series_limit_per_sec=5.0),
-                      device="cpu")
+    agg = te.Aggregator(num_shards=2, opts=te.AggregatorOptions(
+        capacity=8, layout="f64", new_series_limit_per_sec=5.0), device="cpu")
+    assert agg.new_series_limiter is not None
+    assert all(m.limiter is agg.new_series_limiter for sh in agg.shards
+               for ml in sh.lists.values() for m in ml.maps.values())
     ml = te.MetricList(pols[0], te.AggregatorOptions(capacity=8, layout="f64"),
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="pipeline"):
+    from m3_tpu_torch.metrics import pipeline as tpipe
+
+    with pytest.raises(ValueError, match="unsupported pipeline transformation"):
+        ml.add_batch(TMT.GAUGE, [b"a"], np.ones(1), np.full(1, T0),
+                     pipeline=tpipe.Pipeline((tpipe.TransformationOp(TTT.UNKNOWN),)))
+    with pytest.raises(ValueError, match="unsupported pipeline op"):
         ml.add_batch(TMT.GAUGE, [b"a"], np.ones(1), np.full(1, T0),
                      pipeline=Pipeline((TransformationOp(JTT.PER_SECOND),)))
     ml.add_batch(TMT.GAUGE, [b"a"], np.ones(1), np.full(1, T0), pipeline=Pipeline(()))

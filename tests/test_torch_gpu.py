@@ -591,3 +591,111 @@ def test_database_flush_on_card_writes_cpu_bytes(tmp_path):
     (fc, rc), (fg, rg) = out.values()
     assert fc == fg and any("-1-data" in f for f in fc)
     assert rc == rg
+
+
+_DS_RULES = {
+    "mapping_rules": [{"name": "M", "filter": "__name__:reqs", "policies": ["1m:48h"]}],
+    "rollup_rules": [
+        {"name": "R1", "filter": "__name__:reqs", "targets": [{"pipeline": [
+            {"aggregation": "SUM"},
+            {"rollup": {"new_name": "reqs_by_app", "tags": ["app"], "aggregation": []}},
+            {"transformation": "ADD"}], "policies": ["1m:48h"]}]},
+        {"name": "R2", "filter": "__name__:reqs", "targets": [{"pipeline": [
+            {"aggregation": "SUM"},
+            {"rollup": {"new_name": "stage1", "tags": ["app", "code"], "aggregation": []}},
+            {"rollup": {"new_name": "reqs_total", "tags": [], "aggregation": ["SUM"]}}],
+            "policies": ["1m:48h"]}]}]}
+
+
+@pytest.mark.gpu
+def test_downsampler_on_card_writes_cpu_bytes(tmp_path):
+    """The coordinator Downsampler over a Database, on the card and on the
+    CPU, fed the same counters under a mapping rule, a Sum-then-Add
+    rollup and a two-stage rollup, with a checkpoint restored mid-stream:
+    the same flushed batches, and identical files after the output
+    namespace's warm flush (kernel #1)."""
+    import hashlib
+    import pathlib
+
+    from m3_tpu_torch.coordinator.downsample import Downsampler, DownsamplerOptions
+    from m3_tpu_torch.index.doc import Document
+    from m3_tpu_torch.metrics.rules_json import ruleset_from_json
+    from m3_tpu_torch.storage.database import Database, DatabaseOptions, NamespaceOptions
+
+    dev = _cuda_or_skip()
+    block = 2 * 3600 * SEC
+    start = START // block * block
+    docs = [Document.from_tags(b"reqs{app=a%d,code=%d,i=%d}" % (i % 7, i % 3, i),
+                               {b"__name__": b"reqs", b"app": b"a%d" % (i % 7),
+                                b"code": b"%d" % (i % 3), b"i": b"%d" % i})
+            for i in range(3000)]
+    out = {}
+    for d in ("cpu", dev):
+        root = tmp_path / str(d)
+        db = Database(DatabaseOptions(root=str(root)), device=d)
+        db.ensure_namespace("1m:2d", NamespaceOptions(slot_capacity=1 << 13,
+                                                      sample_capacity=1 << 15))
+        opts = DownsamplerOptions(capacity=1 << 13)
+        ds = Downsampler(db, ruleset_from_json(_DS_RULES), opts=opts, device=d)
+        rng = np.random.default_rng(2)
+        flushed = []
+        for k in range(6):
+            ds.write_batch(docs, np.full(len(docs), start + k * 20 * SEC + SEC),
+                           rng.integers(0, 1000, len(docs)).astype(np.float64),
+                           metric_type=MetricType.COUNTER)
+            if k == 2:
+                ds.checkpoint_to(root / "agg.ckpt")
+                ds = Downsampler(db, ruleset_from_json(_DS_RULES), opts=opts, device=d)
+                ds.restore_from(root / "agg.ckpt")
+            if k % 3 == 2:
+                flushed.append(ds.flush(start + (k + 1) // 3 * 60 * SEC))
+        flushed.append(ds.flush(start + 3 * 60 * SEC))
+        before = ep.launches
+        db.tick(start + block + 11 * 60 * SEC)
+        if d == dev:
+            assert ep.launches > before
+        db.close()
+        files = {str(p.relative_to(root)): hashlib.sha256(p.read_bytes()).hexdigest()
+                 for p in sorted(pathlib.Path(root, "data").rglob("*")) if p.is_file()}
+        out[str(d)] = (files, flushed)
+    (fc, wc), (fg, wg) = out.values()
+    assert wc == wg and fc == fg and any("1m:2d" in f for f in fc)
+
+
+@pytest.mark.gpu
+def test_forwarding_on_card_equals_cpu():
+    """Four shards on the f64 layout, counters whose two-stage Sum tails
+    forward across shards (kernels #3 and #4 on the card): every consume
+    pass flushes the same rows on the card as on the CPU."""
+    from m3_tpu_torch.metrics.pipeline import AppliedRollupOp, Pipeline
+
+    dev = _cuda_or_skip()
+    sp = StoragePolicy.parse("10s:2d")
+    sum_id = AggregationID.compress([AggregationType.SUM])
+    rng = np.random.default_rng(3)
+    vals = rng.normal(5, 3, (2, 4000)).round(3)
+    passes = {}
+    for d in ("cpu", dev):
+        agg = te.Aggregator(num_shards=4, opts=te.AggregatorOptions(
+            capacity=1 << 12, num_windows=4, timer_sample_capacity=1 << 10, layout="f64",
+            storage_policies=(sp,)), device=d)
+        before = dict(si.launches)
+        for w in range(2):
+            for g in range(40):
+                rows = [i for i in range(4000) if i % 40 == g]
+                sids = [b"s1.%d" % i for i in rows]
+                for sh in {agg.shard_index(s) for s in sids}:
+                    sel = [j for j, s in enumerate(sids) if agg.shard_index(s) == sh]
+                    agg.shards[sh].lists[sp].add_batch(
+                        MetricType.COUNTER, [sids[j] for j in sel], vals[w][[rows[j] for j in sel]],
+                        np.full(len(sel), START + w * 10 * SEC + SEC), sum_id,
+                        pipeline=Pipeline((AppliedRollupOp(b"s2.%d" % g, sum_id),)))
+        got = []
+        for k in range(1, 5):
+            got.append([(fm.timestamp_nanos, fm.slots.tolist(), fm.values.tolist())
+                        for fm in agg.consume(START + k * 10 * SEC)])
+        if d == dev:
+            assert all(si.launches[k] > before[k] for k in si.KERNELS)
+        passes[str(d)] = got
+    assert passes["cpu"] == passes[str(dev)]
+    assert sum(len(p) for p in passes["cpu"]) > 0
