@@ -109,12 +109,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 14. the storage node's write -> flush -> read path at BASELINE config
    #2's shape with ``NamespaceOptions()`` defaults (2 h blocks, 48 h
    retention, bufferPast 10 m, bufferFuture 2 m, 4 shards, cold writes
-   on) and the commit log on: 100,000 untagged gauges x 720 scrapes at
-   10 s over one 2 h block (phase 3's value mix), 1 % rewritten at the
+   on) and the commit log on: 100,000 untagged gauges x 360 scrapes at
+   10 s over the first hour of one 2 h block (phase 3's value mix; 720
+   would fill it), 1 % rewritten at the
    same timestamp with another value, 0.1 % two hours late (cold lists)
-   and 100 samples beyond bufferFuture; the first 120 scrapes through
+   and 100 samples beyond bufferFuture; the first 60 scrapes through
    ``Database.write_batch`` (shard hash, slot resolve, commit log,
-   buffer), the other 600 through each shard's ``buffer.write`` with
+   buffer), the other 300 through each shard's ``buffer.write`` with
    the slots resolved; ``tick`` past the block's end plus bufferPast
    (drain sort, ``encode_batch`` with kernel #1 held bit for bit
    against its plain version on its inputs, fileset write), late writes
@@ -122,17 +123,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    block; every volume decoded on the card (kernel #2, held against its
    plain version) equal bit for bit to a last-write-wins oracle of
    everything acknowledged; ``read_batch`` of 1,000 series equal to the
-   oracle; snapshot and cleanup, then 30 scrapes (5 minutes, 3,000,000
+   oracle; snapshot and cleanup, then 15 scrapes (150 s, 1,500,000
    samples) of the next block through ``Database.write_batch``, left
    unflushed, and a restart whose ``bootstrap()`` replays their commit
    log into the card's buffers; the same reads, now over that block
    too, equal to the oracle; a card and a CPU Database fed the same 1,024 series
-   x 240 scrapes write identical volume files (sha256); entry and hot
+   x 120 scrapes write identical volume files (sha256); entry and hot
    samples/s with the entry's host rows, device time per append (CUDA
    events), one profiled scrape, drain and encode times per shard,
    fileset write time, peak memory;
 15. PromQL over the storage node: phase 12's config #5 counters written
-   into one open block (the first 40 scrapes through
+   into one open block (the first 20 scrapes through
    ``write_tagged_batch``, index insert and commit log; the rest through
    the shard buffers), then ``histogram_quantile(0.99,
    rate(m3_req_bucket[5m]))`` over 1 h at 15 s through
@@ -145,21 +146,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 16. the coordinator downsampler at BASELINE config #3's width: 1,000,000
    counters ``http_requests_total`` over {app: 100, endpoint: 20,
    status_code: 5, instance: 100}, integer deltas in [0, 1000), 10 s
-   scrapes over three one-minute windows (two scrapes a window, cut from
-   six), all through ``Downsampler.write_batch`` on the card, with M3's
+   scrapes over two one-minute windows (two scrapes a window, cut from
+   six, so each window folds two deltas a series), all through ``Downsampler.write_batch`` on the card, with M3's
    documented coordinator rules: a mapping rule to ``1m:48h``, a rollup
    to Sum by (app, endpoint, status_code) then Add, and a two-stage
    rollup (by route, then Sum by app, one window later), into a storage
    node whose output namespace ``1m:2d`` was made with
    ``ensure_namespace``; every flushed row against a numpy oracle; a
-   checkpoint after the fifth scrape (window 2 half written)
+   checkpoint after the third scrape (window 2 half open)
    restored into a fresh Downsampler
    (sharing the first one's rule-match cache) that takes the later
    scrapes: its flushed batches equal the uninterrupted run's bit for
    bit; a tick past the block's end plus bufferPast warm-flushes the
    output namespace (kernel #1 held against its plain version on its
    inputs) and every volume, decoded on the card (kernel #2, held
-   likewise), equals the oracle; the same rules over the first 2^16
+   likewise), equals the oracle; the same rules over the first 2^14
    series and one window (two scrapes) on the card and on the CPU write
    sha256-identical files;
    write_batch samples/s with host rows (match, grouping, resolve, arena
@@ -173,14 +174,49 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    whose two-stage Sum tails forward by the next stage's id, on the f64
    layout (kernels #3 and #4 held against their plain versions on every
    call) and on the packed one: every stage-2 total exact, no stage-1
-   aggregate flushed locally.
+   aggregate flushed locally;
+18. the node through its entry points: (a) ``run_node(NodeConfig(...))``
+   on the card (namespace ``default`` at the defaults, commit log on,
+   the coordinator on an ephemeral port, the mediator on with a tick the
+   phase drives through ``run_once``) fed phase 12's 100,000 counters,
+   24 scrapes at 15 s (2.4M samples), as 1,200 Prometheus remote-write
+   requests of 2,000 samples (snappy + protobuf from the port's
+   ``build_write_request``; three processes, started with the script,
+   build them, as senders would); ``GET /api/v1/query_range`` of ``histogram_quantile(0.99,
+   rate(m3_req_bucket[5m]))`` over the last minute at 15 s with
+   ``timeout=`` set, 64 groups held against the scalar oracles within
+   rtol 1e-6; ``/api/v1/query`` at one instant, a remote read of 100
+   series and ``/api/v1/series`` and ``/labels`` against the data
+   written, bit for bit; ``run_once`` past the block's end plus
+   bufferPast (warm flush of each shard, kernel #1 held bit for bit
+   against its plain version on every launch), the node's volumes
+   decoded on the card (kernel #2, held likewise) against the data
+   written (M3TSZ's decimal snaps within 1e-15 relative, and bit-equal
+   to the CPU decode); the query again over the 1 % of groups whose
+   label ends in 00, from the filesets, within rtol 1e-12 of before;
+   ``/metrics`` (``m3tpu_db_writes_tagged`` equal to the samples
+   acknowledged, no ``*_errors``) and ``/health``; one scrape into the
+   next block, ``Assembly.close()`` and ``run_node`` again on the same
+   root (commit-log replay, filesets): the same answers; (b)
+   ``python -m m3_tpu_torch.server.node_main <config>`` as a subprocess
+   on the card: ``node.json``, ``/health``, one remote write, a
+   ``query_range`` within rtol 1e-12 of (a)'s, a remote read bit for
+   bit, and SIGTERM: a drain and exit 0 within 60 s, with no failed
+   drain stage in its log and the drain's fileset volumes, decoded,
+   equal to the samples written; requests/s and
+   samples/s with the node's host split (snappy, protobuf, documents,
+   ``write_tagged_batch``), the first request alone, the query's wall
+   with its host rows (index, reads, eval, handler, JSON), the device
+   idle share of one profiled write request and of the query, flush,
+   bootstrap, peak memory.
 
 Each kernel record carries ``launches`` (phase 3's pass or phase 7's
 drive), ``query_launches`` (phase 13), ``storage_launches`` (phase
 14's write, flush, read and restart: kernel #1 once per shard per warm
 flush, no other), ``storage_check_launches`` (phase 14's volume
-check: kernel #2) and ``downsample_launches`` (phases 16-17; each must
-be above 0).  The last three lines are a JSON line of kernel records, the card's name
+check: kernel #2), ``downsample_launches`` (phases 16-17; each must
+be above 0), ``node_launches`` (phase 18's node: kernel #1 in the
+flush) and ``node_check_launches`` (its volume check: kernel #2).  The last three lines are a JSON line of kernel records, the card's name
 and power limit, and the result line ``{"ok": true, "device": {...}}``.
 Exact comparisons throughout, except where a phase names its tolerance.
 """
@@ -1785,13 +1821,14 @@ BLOCK = 2 * 3600 * SEC  # NamespaceOptions() block size
 STORE_START = (1_700_000_000 * SEC) // BLOCK * BLOCK  # a block boundary
 STORE_SCRAPE = 10 * SEC
 STORE_SERIES = 100_000  # config #2's width
-STORE_ENTRY_SCRAPES = 120  # of the 720 through Database.write_batch (PERF.md §4)
-STORE_TAIL_SCRAPES = 30  # of the next block, replayed from the commit log (PERF.md §4)
+STORE_SCRAPES = 360  # of the block's 720 (PERF.md §4)
+STORE_ENTRY_SCRAPES = 60  # of the 720 through Database.write_batch (PERF.md §4)
+STORE_TAIL_SCRAPES = 15  # of the next block, replayed from the commit log (PERF.md §4)
 STORE_CHECK_SERIES = 1024  # the card-vs-CPU Database (PERF.md §4)
-STORE_CHECK_SCRAPES = 240  # its scrapes (PERF.md §4)
+STORE_CHECK_SCRAPES = 120  # its scrapes (PERF.md §4)
 STORE_READ_SAMPLE = 1000
 STORE_FUTURE = 100  # samples beyond bufferFuture
-PROMQL_ENTRY_SCRAPES = 40  # of the 261 through Database.write_tagged_batch (PERF.md §4)
+PROMQL_ENTRY_SCRAPES = 20  # of the 261 through Database.write_tagged_batch (PERF.md §4)
 
 
 def store_root(name: str) -> Path:
@@ -2082,7 +2119,7 @@ def storage_node(seed: int, S: int, dev, card: str) -> tuple:
     from m3_tpu_torch.storage import database as tdb
 
     t_gen = time.perf_counter()
-    traffic = StorageTraffic(seed, S)
+    traffic = StorageTraffic(seed, S, STORE_SCRAPES)
     log(f"phase14 data: {S} untagged gauges x {traffic.K} scrapes at 10 s over one 2 h "
         f"block ({S * traffic.K:,} samples), {sum(len(e[0]) for e in traffic.extra if e is not None):,} "
         f"more (1 % rewrites, 0.1 % late, {STORE_FUTURE} ahead); generated in "
@@ -2424,10 +2461,10 @@ def promql_over_storage(seed: int, G: int, B: int, dev, card: str) -> dict:
 # {app: 100, endpoint: 20, status_code: 5, instance: 100}
 DS_APPS, DS_ENDPOINTS, DS_CODES, DS_INSTANCES = 100, 20, 5, 100
 DS_SERIES = DS_APPS * DS_ENDPOINTS * DS_CODES * DS_INSTANCES
-DS_WINDOWS = 3  # one-minute windows (1m:48h)
+DS_WINDOWS = 2  # one-minute windows (1m:48h; PERF.md §4)
 DS_SCRAPES_PER_WINDOW = 2  # of the six 10 s scrapes a minute holds (PERF.md §4)
-DS_CKPT_AFTER = 5  # scrapes written before the checkpoint (window 2 half open)
-DS_CHECK_SERIES = 1 << 16  # the card-vs-CPU pair
+DS_CKPT_AFTER = 3  # scrapes written before the checkpoint (window 2 half open)
+DS_CHECK_SERIES = 1 << 14  # the card-vs-CPU pair (PERF.md §4)
 DS_POLICY = "1m:48h"  # its namespace's name is "1m:2d"
 # M3's documented coordinator rollup rules: a mapping rule, a rollup to Sum
 # over a groupBy list then Add, and a two-stage rollup
@@ -2859,7 +2896,7 @@ def downsampler_phase(seed: int, dev, card: str) -> tuple:
     records["extract_fields64_t"]["max_abs_err"] = dcheck.err
     del pcheck, dcheck, frags, keys
 
-    # card and CPU pairs fed the first 2^16 series over the first window
+    # card and CPU pairs fed the first DS_CHECK_SERIES series over the first window
     # (and the flush of its stage 2) write the same bytes
     t0 = time.perf_counter()
     n = DS_CHECK_SERIES
@@ -3057,6 +3094,516 @@ def downsample_phases(kernels: list, seed: int, agg_series: int, dev, card: str)
     log(f"phase17 [{card}] downsample path: " + json.dumps({"phase16": ds_t, "phase17": fwd_t}))
 
 
+# ---- phase 18: the node (config -> assembly -> mediator -> HTTP) ---------
+
+NODE_SCRAPES = 24  # of config #5's 261: 6 min, one full rate(...[5m]) window (PERF.md §4)
+NODE_BATCH = 2_000  # samples a request: Prometheus's queue_config.max_samples_per_send
+NODE_READ_SERIES = 100  # remote read
+NODE_CHECK_GROUPS = 64  # groups held against the scalar oracle
+NODE_FLUSHED_QUERY = 'histogram_quantile(0.99, rate(m3_req_bucket{group=~".*00"}[5m]))'
+NODE_TIMEOUT = "900s"  # the query's timeout= (the node's default, 30 s, stays)
+NODE_WORKERS = 3  # processes that build the request bodies, as senders would
+_NODE_CORPUS: dict = {}
+
+
+def _node_init(seed: int, G: int, B: int) -> None:
+    """A body builder's corpus (each worker process generates it once)."""
+    _NODE_CORPUS["data"] = promql_corpus(seed, G, B)
+
+
+def node_body(task) -> bytes:
+    """One remote-write request: rows [lo, hi) of scrape k as snappy +
+    protobuf, built with the port's ``build_write_request`` (which calls
+    its ``compress``).  Runs in a builder process."""
+    from m3_tpu_torch.server import prom_remote as pr
+
+    k, lo, hi = task
+    ts, vals, ubs = _NODE_CORPUS["data"]
+    B = len(ubs)
+    return pr.build_write_request([
+        pr.PromTimeSeries({b"__name__": b"m3_req_bucket", b"group": b"g%06d" % (i // B),
+                           b"le": ubs[i % B]}, [(int(ts[i, k]), float(vals[i, k]))])
+        for i in range(lo, hi)])
+
+
+class NodeClient:
+    """HTTP to one node, with every status checked by the caller."""
+
+    def __init__(self, port: int):
+        self.base = f"http://127.0.0.1:{port}"
+
+    def call(self, path: str, body: bytes | None = None, headers=None):
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(self.base + path, data=body, headers=headers or {})
+        try:
+            with urllib.request.urlopen(req, timeout=1200) as r:
+                return r.status, dict(r.headers), r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, dict(e.headers), e.read()
+
+    def write(self, body: bytes) -> None:
+        st, _, out = self.call("/api/v1/prom/remote/write", body, {
+            "Content-Encoding": "snappy", "Content-Type": "application/x-protobuf",
+            "X-Prometheus-Remote-Write-Version": "0.1.0"})
+        assert st == 204, (st, out[:300])
+
+    def json(self, path: str):
+        st, _, out = self.call(path)
+        assert st == 200, (path, st, out[:500])
+        return json.loads(out)
+
+
+def node_query_path(query: str, start_ns: int, end_ns: int) -> str:
+    from urllib.parse import urlencode
+
+    return "/api/v1/query_range?" + urlencode({
+        "query": query, "start": start_ns / 1e9, "end": end_ns / 1e9, "step": "15s",
+        "timeout": NODE_TIMEOUT})
+
+
+def node_answer(doc) -> dict:
+    """A query_range answer: {group: {step seconds: value}}."""
+    assert doc["status"] == "success" and doc["data"]["resultType"] == "matrix", doc
+    return {r["metric"]["group"]: {float(t): float(v) for t, v in r["values"]}
+            for r in doc["data"]["result"]}
+
+
+def node_same(a: dict, b: dict, rtol: float) -> float:
+    """Two answers over the same groups and steps, values within rtol;
+    returns the largest relative difference."""
+    assert a.keys() == b.keys() and a, (len(a), len(b))
+    worst = 0.0
+    for g, row in a.items():
+        assert row.keys() == b[g].keys(), g
+        x = np.array(list(row.values()))
+        y = np.array([b[g][t] for t in row])
+        worst = max(worst, rel_err(x, y))
+    assert worst <= rtol, worst
+    return worst
+
+
+def node_config(root: Path, tick: str = "24h"):
+    """config #5's node: namespace ``default`` at the defaults
+    (``NamespaceOptions()``), commit log on, the coordinator on an
+    ephemeral port, the mediator on with a tick too long to fire (the
+    phase drives ``run_once``), snapshot and cleanup on each pass."""
+    from m3_tpu_torch.core.config import (
+        CoordinatorConfig, DBConfig, MediatorConfig, NodeConfig,
+    )
+
+    return NodeConfig(db=DBConfig(root=str(root)), coordinator=CoordinatorConfig(listen_port=0),
+                      mediator=MediatorConfig(tick_interval=tick, snapshot_every=1,
+                                              cleanup_every=1))
+
+
+def node_main_check(root: Path, ts, vals, ubs, before: dict, q_start: int,
+                    q_end: int, dev) -> dict:
+    """(b) ``python -m m3_tpu_torch.server.node_main <config>`` on the card:
+    node.json, /health, one remote write (every scrape of the first
+    groups' series, under NODE_BATCH samples), one query_range equal to
+    (a)'s on those groups within rtol 1e-12, one remote read bit-equal to
+    the samples written, and SIGTERM: a drain and exit 0 within 60 s, no
+    failed drain stage logged, and the drain's fileset volumes equal to
+    the samples written."""
+    import os
+    import signal
+
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.persist.fs import DataFileSetReader
+    from m3_tpu_torch.server import prom_remote as pr
+
+    cfg = root / "node.yaml"
+    cfg.write_text(f"db: {{root: {root / 'data'}}}\ncoordinator: {{listen_port: 0}}\n"
+                   "mediator: {tick_interval: 24h}\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "m3_tpu_torch.server.node_main", str(cfg)],
+                            cwd=str(root), env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        status = root / "data" / "node.json"
+        while not status.exists():
+            assert proc.poll() is None, proc.stdout.read()
+            assert time.perf_counter() - t0 < 120, "node_main: no node.json in 120 s"
+            time.sleep(0.2)
+        boot_s = time.perf_counter() - t0
+        info = json.loads(status.read_text())
+        assert info["pid"] == proc.pid and info["device"].startswith(str(dev)), info
+        c = NodeClient(info["port"])
+        assert c.json("/health")["ok"]
+        B, K = len(ubs), NODE_SCRAPES
+        groups = NODE_BATCH // (B * K)
+        t1 = time.perf_counter()
+        c.write(pr.build_write_request([pr.PromTimeSeries(
+            {b"__name__": b"m3_req_bucket", b"group": b"g%06d" % (i // B), b"le": ubs[i % B]},
+            list(zip(ts[i, :K].tolist(), vals[i, :K].tolist()))) for i in range(groups * B)]))
+        got = node_answer(c.json(node_query_path(HQ_QUERY, q_start, q_end)))
+        assert len(got) == groups, len(got)
+        err = node_same(got, {g: before[g] for g in got}, 1e-12)
+        read = node_read_check(c, ts, vals, ubs, q_end, G=groups)
+        wq_s = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        drain_s = time.perf_counter() - t2
+        out = proc.stdout.read()
+        assert rc == 0, out[-2000:]
+        assert not status.exists(), "node.json left after the drain"
+        # the drain swallows a failed stage (the reference's semantics):
+        # its log line, and the volumes its warm flush wrote, say whether
+        # the flush on the card went through
+        assert "drain:" not in out, out[-2000:]
+        n = groups * B
+        pos_id = {b"m3_req_bucket{group=g%06d,le=%s}" % (i // B, ubs[i % B]): i
+                  for i in range(n)}
+        rows, segs = [], []
+        for sh, bs, v in fileset_volumes(root / "data"):
+            r = DataFileSetReader(str(root / "data"), "default", sh, bs, v)
+            for sid, seg in r.read_all():
+                rows.append(pos_id[sid])
+                segs.append(seg)
+            r.close()
+        rows = np.asarray(rows)
+        assert np.array_equal(np.sort(rows), np.arange(n)), "drain volumes miss series"
+        d_ts, d_vals, counts, dfb = mt.decode_batch(segs, K + 1, device="cpu")
+        assert not dfb.any() and (counts == K).all(), "drain volumes: point counts"
+        assert np.array_equal(d_ts[:, :K], ts[rows, :K]), "drain volumes: timestamps"
+        vol_rel = rel_err(d_vals[:, :K].ravel(), vals[rows, :K].ravel())
+        assert vol_rel <= 1e-15, vol_rel
+        return {"boot_s": boot_s, "requests_s": wq_s, "drain_s": drain_s, "read_series": read,
+                "groups": groups, "max_rel_err_vs_a": err, "drain_volume_series": n,
+                "drain_volume_max_rel_err": vol_rel}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+            raise AssertionError("node_main left running: killed")
+
+
+def node_read_check(c: NodeClient, ts, vals, ubs, end: int, G: int) -> int:
+    """Remote read of NODE_READ_SERIES series (groups < G, four buckets
+    each): every sample bit-equal to what was written."""
+    from m3_tpu_torch.server import prom_remote as pr
+
+    B = len(ubs)
+    ng = min(NODE_READ_SERIES // 4, G)
+    groups = "|".join("g%06d" % g for g in range(ng))
+    les = [0, 1, 2, B - 1]
+    q = (pr._emit_field(1, 0, pr._emit_varint(int(ts[0, 0]) // 10**6))
+         + pr._emit_field(2, 0, pr._emit_varint(end // 10**6)))
+    for typ, name, value in ((0, b"__name__", b"m3_req_bucket"), (2, b"group", groups.encode()),
+                             (2, b"le", b"|".join(ubs[i].replace(b"+", b"\\+") for i in les))):
+        q += pr._emit_len(3, pr._emit_field(1, 0, pr._emit_varint(typ)) + pr._emit_len(2, name)
+                          + pr._emit_len(3, value))
+    st, h, body = c.call("/api/v1/prom/remote/read?timeout=" + NODE_TIMEOUT,
+                         pr.snappy.compress(pr._emit_len(1, q)))
+    assert st == 200, (st, body[:300])
+    raw = pr.snappy.decompress(body)
+    results = [v for f, _w, v in pr._fields(raw) if f == 1]
+    series = [pr._parse_timeseries(v) for f, _w, v in pr._fields(results[0]) if f == 1]
+    assert len(series) == ng * len(les), len(series)
+    pos = {u: i for i, u in enumerate(ubs)}
+    K = int((ts[0] <= end).sum())
+    for s in series:
+        row = int(s.labels[b"group"][1:]) * B + pos[s.labels[b"le"]]
+        t = np.array([p[0] for p in s.samples], np.int64)
+        v = np.array([p[1] for p in s.samples])
+        assert np.array_equal(t, ts[row, :K]), row
+        assert np.array_equal(v.view(np.int64), vals[row, :K].view(np.int64)), row
+    return len(series)
+
+
+def node_builders(seed: int, G: int, B: int):
+    """Phase 18's request builders: a pool of NODE_WORKERS spawned
+    processes already building every request body in order.  Returns
+    (pool, the bodies' iterator, the tasks); the caller terminates the
+    pool."""
+    import multiprocessing
+
+    S = G * B
+    tasks = [(k, lo, min(lo + NODE_BATCH, S)) for k in range(NODE_SCRAPES)
+             for lo in range(0, S, NODE_BATCH)]
+    pool = multiprocessing.get_context("spawn").Pool(
+        NODE_WORKERS, initializer=_node_init, initargs=(seed, G, B))
+    return pool, pool.imap(node_body, tasks), tasks
+
+
+def node_phase(seed: int, G: int, B: int, dev, card: str, builders) -> tuple:
+    """Phase 18: the port's node, ``run_node(NodeConfig(...))`` on the
+    card, at config #5's full width.  ``builders`` is ``node_builders``'
+    result, started early so the bodies are ready.
+    Returns (times, the four kernels' launches on the node's path, their
+    launches in the volume check, kernel #1's record at the flush's
+    shapes)."""
+    import torch
+
+    from m3_tpu_torch.server import assembly
+
+    pool, bodies, tasks = builders
+    try:
+        ts, vals, ubs = promql_corpus(seed, G, B)
+        S = ts.shape[0]
+        K = NODE_SCRAPES
+        root = store_root("phase18")
+        log(f"phase18 data: {S:,} counters ({G:,} groups x {B} le) x {K} scrapes at 15 s "
+            f"({S * K:,} samples) as {len(tasks)} remote-write requests of {NODE_BATCH}")
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.perf_counter()
+        asm = assembly.run_node(node_config(root), device=dev)
+        start_s = time.perf_counter() - t0
+        try:
+            out = node_drive(asm, bodies, tasks, ts, vals, ubs, start_s, seed, dev, card)
+        finally:
+            if asm.http_server is not None:
+                asm.close()
+    finally:
+        pool.terminate()
+        pool.join()
+    return out
+
+
+def node_drive(asm, bodies, tasks, ts, vals, ubs, start_s, seed, dev, card) -> tuple:
+    """Phase 18 from the node's boot on: see node_phase."""
+    from urllib.parse import urlencode
+
+    import torch
+
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.parallel import decode_gather, encode_place
+    from m3_tpu_torch.persist.fs import DataFileSetReader
+    from m3_tpu_torch.server import assembly, http_api
+    from m3_tpu_torch.server import prom_remote as pr
+    from m3_tpu_torch.server import snappy
+    from m3_tpu_torch.storage import database as tdb
+
+    S, B, K = ts.shape[0], len(ubs), NODE_SCRAPES
+    G = S // B
+    end = int(ts[0, K - 1])
+    ub_f = np.array([np.inf if u == b"+Inf" else float(u) for u in ubs])
+    root = Path(asm.db.opts.root)
+    c = NodeClient(asm.port)
+    assert c.json("/health")["ok"]
+
+    # (a) remote writes, host split on the node's side
+    clock = HostClock()
+    clock.wrap(http_api._Handler, "_prom_remote_write", "documents")
+    clock.wrap(pr, "parse_write_request", "protobuf")
+    clock.wrap(snappy, "decompress", "snappy")
+    clock.wrap(http_api._Handler, "_ingest_tagged", "ingest_rest")
+    clock.wrap(tdb.Database, "write_tagged_batch", "write_tagged_batch")
+    waits = 0.0
+    first_s = None
+    prof = None
+    t0 = time.perf_counter()
+    try:
+        for i in range(len(tasks)):
+            tw = time.perf_counter()
+            body = bodies.next(timeout=300)  # a builder that died fails the phase
+            waits += time.perf_counter() - tw
+            tr = time.perf_counter()
+            if i == len(tasks) // 2:
+                prof = profiled(lambda: c.write(body), tries=1)
+            else:
+                c.write(body)
+            if first_s is None:
+                first_s = time.perf_counter() - tr
+    finally:
+        clock.restore()
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    split = {f"write_split_{k}_s": v for k, v in clock.s.items()}
+    log(f"phase18 [{card}] {len(tasks)} remote-write requests in {write_s:.1f} s: "
+        f"{len(tasks) / write_s:,.1f} requests/s, {S * K / write_s:,.0f} samples/s; first "
+        f"request {first_s:.3f} s; node side " + json.dumps(split)
+        + f"; waits on the builders {waits:.1f} s")
+
+    # queries, each held against the data written
+    q_end = end
+    q_start = end - 60 * SEC
+    steps = np.arange(q_start, q_end + 1, PROMQL_STEP, dtype=np.int64)
+    out: dict = {}
+    qrows = ((http_api._Handler, "_query", "handler"), (http_api._Handler, "_json", "json"),
+             (tdb.Database, "query_ids", "index_query"), (tdb.Database, "read", "series_reads"))
+    qprof = profiled(lambda: out.__setitem__("split", query_host_split(
+        lambda: out.__setitem__("doc", c.json(node_query_path(HQ_QUERY, q_start, q_end))),
+        extra=qrows)), tries=1)
+    qsplit = out["split"]
+    qbusy = qprof["busy_no_htod_s"] + qsplit["upload_copies_device_ms"] * 1e-3
+    before = node_answer(out["doc"])
+    assert len(before) == G, len(before)
+    worst = 0.0
+    check = np.random.default_rng(seed + 18).choice(G, NODE_CHECK_GROUPS, replace=False)
+    for g in check:
+        rates = np.stack([oracle_rate(ts[g * B + b, :K], vals[g * B + b, :K], steps, RATE_WIN)
+                          for b in range(B)])
+        want = np.array([oracle_hq(ub_f, rates[:, j], 0.99) for j in range(len(steps))])
+        got = before[f"g{g:06d}"]
+        assert sorted(got) == [t / 1e9 for t, w in zip(steps, want) if not np.isnan(w)], g
+        x = np.array([got[t / 1e9] for t, w in zip(steps, want) if not np.isnan(w)])
+        y = want[~np.isnan(want)]
+        assert np.allclose(x, y, rtol=1e-6, atol=1e-12), (g, x[:3], y[:3])
+        worst = max(worst, rel_err(x, y))
+    log(f"phase18 query_range {HQ_QUERY} over the last minute: {G:,} groups; "
+        f"{NODE_CHECK_GROUPS} == the scalar oracle within rtol 1e-6 (largest {worst:.3e}); "
+        f"{qsplit['wall_ms']:.0f} ms, device idle {1 - qbusy / qprof['wall_s']:.4f}; "
+        + json.dumps(qsplit))
+    t0 = time.perf_counter()
+    inst = c.json("/api/v1/query?" + urlencode({
+        "query": 'm3_req_bucket{group=~"g00000[0-9]"}', "time": end / 1e9,
+        "timeout": NODE_TIMEOUT}))
+    assert inst["data"]["resultType"] == "vector" and len(inst["data"]["result"]) == 10 * B
+    pos = {u.decode(): i for i, u in enumerate(ubs)}
+    for r in inst["data"]["result"]:
+        row = int(r["metric"]["group"][1:]) * B + pos[r["metric"]["le"]]
+        assert r["value"] == [end / 1e9, repr(float(vals[row, K - 1]))], (r, vals[row, K - 1])
+    n_read = node_read_check(c, ts, vals, ubs, end, G)
+    labels = c.json(f"/api/v1/labels?start={ts[0, 0] / 1e9}&end={end / 1e9}")["data"]
+    assert labels == ["__name__", "group", "le"], labels
+    series = c.json(f"/api/v1/series?start={ts[0, 0] / 1e9}&end={end / 1e9}")["data"]
+    assert len(series) == S and {s["le"] for s in series} == {u.decode() for u in ubs}
+    reads_s = time.perf_counter() - t0
+    log(f"phase18 query at one instant: {10 * B} series == the last scrape bit for bit; "
+        f"remote read of {n_read} series == the samples written bit for bit; labels "
+        f"{labels}; series {len(series):,} ({reads_s:.1f} s)")
+
+    # the flush: run_once past the block's end + bufferPast, kernel #1 checked
+    block = ts[0, 0] // BLOCK * BLOCK
+    now = int(block + BLOCK + 10 * 60 * SEC + SEC)
+    with KernelCheck(mt, "place_words", encode_place.place_words_plain) as pcheck:
+        t0 = time.perf_counter()
+        stats = asm.mediator.run_once(now)
+        torch.cuda.synchronize()
+        flush_s = time.perf_counter() - t0
+    launched = read_launches()
+    n_shards = asm.db.namespaces["default"].opts.num_shards
+    assert stats["tick"]["default"]["warm_flushed"] == S, stats
+    assert launched["place_words"] == pcheck.calls == n_shards, (launched, pcheck.calls)
+    frags, keys, w_out = pcheck.args
+    place = {"node_ms": cuda_ms(lambda: pcheck.fn(frags, keys, w_out)),
+             "node_plain_ms": cuda_ms(lambda: encode_place.place_words_plain(frags, keys, w_out)),
+             "node_bound_ms": (frags.numel() * (8 + 4) + frags.shape[0] * w_out * 8)
+             / HBM_BYTES_PER_S * 1e3,
+             "node_shape": [list(frags.shape), w_out], "node_max_abs_err": pcheck.err}
+    del frags, keys
+    log(f"phase18 run_once past the block in {flush_s:.1f} s: " + json.dumps(
+        {k: v for k, v in stats.items() if k != "duration_s"})
+        + f"; kernel #1 == plain in {pcheck.calls} calls; launches {launched}")
+
+    # the node's volumes decoded on the card (kernel #2) against the data written
+    zero_launches()
+    t0 = time.perf_counter()
+    pos_id = {b"m3_req_bucket{group=g%06d,le=%s}" % (i // B, ubs[i % B]): i for i in range(S)}
+    with KernelCheck(mt, "extract_fields64_t", decode_gather.extract_fields64_t_plain) as dcheck:
+        rows, segs = [], []
+        for sh in range(n_shards):
+            r = DataFileSetReader(str(root), "default", sh, int(block), 0)
+            for sid, seg in r.read_all():
+                rows.append(pos_id[sid])
+                segs.append(seg)
+            r.close()
+        rows = np.asarray(rows)
+        d_ts, d_vals, counts, dfb = mt.decode_batch(segs, K + 1, device=dev)
+    check_launched = read_launches()
+    assert np.array_equal(np.sort(rows), np.arange(S)), "volumes miss series"
+    assert not dfb.any() and (counts == K).all()
+    assert np.array_equal(d_ts[:, :K], ts[rows, :K]), "volume timestamps"
+    h_ts, h_vals, _, _ = mt.decode_batch(segs[:256], K + 1, device="cpu")
+    assert np.array_equal(d_ts[:256, :K], h_ts[:, :K])
+    assert np.array_equal(d_vals[:256, :K].view(np.int64), h_vals[:, :K].view(np.int64))
+    snapped = int((d_vals[:, :K].view(np.int64) != vals[rows, :K].view(np.int64)).sum())
+    vol_rel = rel_err(d_vals[:, :K].ravel(), vals[rows, :K].ravel())
+    assert vol_rel <= 1e-15, vol_rel
+    assert check_launched["extract_fields64_t"] > 0 and dcheck.calls > 0, check_launched
+    check_s = time.perf_counter() - t0
+    log(f"phase18 {n_shards} volumes decoded on the card (kernel #2 == plain in {dcheck.calls} "
+        f"calls): timestamps == written; values == written but {snapped} snapped to a decimal "
+        f"by M3TSZ (largest relative {vol_rel:.2e}), == the CPU decode bit for bit "
+        f"({check_s:.1f} s)")
+    del d_ts, d_vals, segs
+
+    # after the flush: the 1 % of groups from the filesets == before (the
+    # reads decode on the host: no kernel from here on)
+    zero_launches()
+    t0 = time.perf_counter()
+    after = node_answer(c.json(node_query_path(NODE_FLUSHED_QUERY, q_start, q_end)))
+    after_s = time.perf_counter() - t0
+    sub = {g: before[g] for g in after}
+    assert len(after) == G // 100
+    flushed_err = node_same(after, sub, 1e-12)
+    metrics = c.call("/metrics")[2].decode()
+    written = [l for l in metrics.splitlines() if l.startswith("m3tpu_db_writes_tagged ")]
+    assert written == [f"m3tpu_db_writes_tagged {S * K}"], written
+    errors = [l for l in metrics.splitlines() if "_errors" in l and not l.startswith("#")]
+    assert not errors, errors
+    health = c.json("/health")
+    assert health["ok"]
+    log(f"phase18 after the flush: {len(after)} groups == before within rtol 1e-12 (largest "
+        f"{flushed_err:.3e}, {after_s:.1f} s); /metrics writes_tagged {S * K:,}, no *_errors; "
+        f"/health 200")
+
+    # one scrape into the next block (left in the commit log), close, restart
+    nxt = [(0, lo, min(lo + NODE_BATCH, S)) for lo in range(0, S, NODE_BATCH)]
+    shift = int(block + BLOCK + 60 * SEC) - int(ts[0, 0])
+    t0 = time.perf_counter()
+    for k, lo, hi in nxt:
+        c.write(pr.build_write_request([pr.PromTimeSeries(
+            {b"__name__": b"m3_req_bucket", b"group": b"g%06d" % (i // B), b"le": ubs[i % B]},
+            [(int(ts[i, 0]) + shift, float(vals[i, K - 1]))]) for i in range(lo, hi)]))
+    tail_s = time.perf_counter() - t0
+    asm.close()
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    asm = assembly.run_node(node_config(root), device=dev)
+    boot_s = time.perf_counter() - t0
+    try:
+        c = NodeClient(asm.port)
+        again = node_answer(c.json(node_query_path(NODE_FLUSHED_QUERY, q_start, q_end)))
+        restart_err = node_same(again, sub, 1e-12)
+        # the next block's scrape, from the replayed commit log
+        tail = c.json("/api/v1/query?" + urlencode({
+            "query": 'm3_req_bucket{group=~"g00000[0-9]"}',
+            "time": (int(ts[0, 0]) + shift) / 1e9, "timeout": NODE_TIMEOUT}))["data"]["result"]
+        assert len(tail) == 10 * B, len(tail)
+        for r in tail:
+            row = int(r["metric"]["group"][1:]) * B + pos[r["metric"]["le"]]
+            assert r["value"][1] == repr(float(vals[row, K - 1])), (r, row)
+    finally:
+        asm.close()
+    rest = read_launches()
+    assert not any(rest.values()), rest
+    log(f"phase18 restart: run_node on the same root in {boot_s:.1f} s: {len(again)} groups "
+        f"from the filesets == before within rtol 1e-12 (largest {restart_err:.3e}); the next "
+        f"block's scrape from the replayed commit log == written on {len(tail)} series")
+
+    # (b) the real entry point
+    main_t = node_main_check(store_root("phase18-main"), ts, vals, ubs, before, q_start, q_end,
+                             dev)
+    log(f"phase18 (b) node_main on the card: " + json.dumps(main_t))
+
+    t = {"series": S, "scrapes": K, "requests": len(tasks), "batch": NODE_BATCH,
+         "start_s": start_s, "write_s": write_s, "requests_per_s": len(tasks) / write_s,
+         "samples_per_s": S * K / write_s, "first_request_s": first_s,
+         "builder_wait_s": waits, **split,
+         "write_profiled_wall_ms": prof["wall_s"] * 1e3,
+         "write_device_busy_ms": prof["busy_s"] * 1e3,
+         "write_device_idle_share": 1 - prof["busy_s"] / prof["wall_s"],
+         "write_device_ops": prof["ops"],
+         "query_ms": qsplit["wall_ms"], **{f"query_split_{k}": v for k, v in qsplit.items()
+                                          if k != "wall_ms"},
+         "query_device_busy_ms": qbusy * 1e3,
+         "query_device_idle_share": 1 - qbusy / qprof["wall_s"],
+         "query_oracle_max_rel_err": worst, "reads_s": reads_s, "flush_s": flush_s,
+         "check_decode_s": check_s, "snapped_values": snapped,
+         "after_flush_query_s": after_s, "after_flush_max_rel_err": flushed_err,
+         "tail_s": tail_s, "bootstrap_s": boot_s, "restart_max_rel_err": restart_err,
+         "peak_mem_gib": peak / 2**30, "node_main": main_t}
+    log(f"phase18 [{card}] node: " + json.dumps(t))
+    return t, launched, check_launched, place
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3082,6 +3629,10 @@ def main() -> int:
     W = max(16, T * 40 // 64 + 8)
     card = card_line()
     t_start = time.perf_counter()
+
+    # phase 18's request builders start now: their start-up and their
+    # work overlap phases 1-17 (Pool workers end with the script)
+    builders = node_builders(args.seed, PROMQL_GROUPS, PROMQL_BUCKETS)
 
     # ---- phase 1: card, builds ----
     log(f"card: {card}")
@@ -3369,6 +3920,21 @@ def main() -> int:
 
     # ---- phases 16-17: the coordinator downsampler, forwarding ----
     downsample_phases(kernels, args.seed, args.agg_series, dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- phase 18: the node ----
+    t0 = time.perf_counter()
+    node_t, node_launched, node_check, place_node = node_phase(
+        args.seed, PROMQL_GROUPS, PROMQL_BUCKETS, dev, card, builders)
+    log(f"phase18 done in {time.perf_counter() - t0:.1f} s")
+    assert node_launched["place_words"] > 0 and node_check["extract_fields64_t"] > 0, \
+        (node_launched, node_check)
+    for k in kernels:
+        k["node_launches"] = node_launched[k["name"]]
+        k["node_check_launches"] = node_check[k["name"]]
+        if k["name"] == "place_words":  # also held at the node flush's shapes
+            k["max_abs_err"] = max(k["max_abs_err"], place_node.pop("node_max_abs_err"))
+            k.update(place_node)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,6 +1,7 @@
-"""PyTorch + CUDA port of the m3_tpu device path (the M3TSZ codec and
-the aggregator on its packed and f64 arena layouts), for one NVIDIA
-H100.
+"""PyTorch + CUDA port of m3_tpu for one NVIDIA H100: the M3TSZ codec,
+the aggregator on its packed and f64 arena layouts, the query engine,
+the storage node, the coordinator's rollups and the node process around
+them (``server/``).
 
 The JAX package ``m3_tpu`` stays the reference; this package mirrors its
 layout and names so each function's counterpart is easy to find, and it

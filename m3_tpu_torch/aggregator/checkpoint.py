@@ -288,28 +288,34 @@ class AggregatorCheckpointer:
     ``save()`` snapshots every (policy, MetricList) under the
     downsampler's lock; ``restore()`` rebuilds them, moving a corrupt
     file aside (``<path>.corrupt``) and starting fresh rather than
-    crash-looping.  ``instrument=`` is not ported (the instrument
-    registry is not part of the port) and raises."""
+    crash-looping.  ``instrument=`` (a registry scope) counts them under
+    ``aggregator.checkpoint`` as the reference does."""
 
     def __init__(self, downsampler, path, instrument=None):
-        if instrument is not None:
-            raise NotImplementedError(
-                "instrument= is not ported: the instrument registry is not "
-                "part of m3_tpu_torch yet")
         self.downsampler = downsampler
         self.path = Path(path)
         self.saves = 0
         self.save_errors = 0
         self.restores = 0
         self.corrupt = 0
+        self._scope = (instrument.scope("aggregator.checkpoint")
+                       if instrument is not None else None)
+
+    def _count(self, name: str) -> None:
+        if self._scope is not None:
+            self._scope.counter(name).inc()
 
     def save(self) -> dict:
         try:
             nbytes = self.downsampler.checkpoint_to(self.path)
         except Exception:  # noqa: BLE001 — counted, then re-raised
             self.save_errors += 1
+            self._count("save_errors")
             raise
         self.saves += 1
+        self._count("saves")
+        if self._scope is not None:
+            self._scope.gauge("bytes").update(nbytes)
         return {"bytes": nbytes, "path": str(self.path)}
 
     def restore(self) -> bool:
@@ -319,6 +325,7 @@ class AggregatorCheckpointer:
             self.downsampler.restore_from(self.path)
         except CorruptionError:
             self.corrupt += 1
+            self._count("corrupt")
             # keep the bytes for forensics, never crash-loop on them
             try:
                 with capacity_guard(path=self.path, component="checkpoint",
@@ -328,6 +335,7 @@ class AggregatorCheckpointer:
                 pass
             return False
         self.restores += 1
+        self._count("restores")
         return True
 
     def status(self) -> dict:

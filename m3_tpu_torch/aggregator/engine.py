@@ -21,9 +21,9 @@ gauge / timer) live on one device.  The host owns:
   (C, lanes) output matrix on the device, masks each slot's requested
   aggregation types, applies each slot's pipeline tail (transforms, RESET's
   forced zero, forwarding to the next rollup stage) and emits (slot, type,
-  time, value) batches.
-
-Not ported: ``instrument_aggregator`` (it needs the instrument registry).
+  time, value) batches;
+* ``instrument_aggregator`` — the counters as registry gauges at scrape
+  time, and the drain-latency histogram.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import time
 from typing import Callable, Dict, List, Sequence
 
 import numpy as np
@@ -983,6 +984,9 @@ class Aggregator:
         # samples skip the arenas and go straight here.
         self.passthrough_handler = passthrough_handler
         self.passthrough_samples = 0
+        # rollup-drain latency histogram, attached by
+        # instrument_aggregator (None = uninstrumented)
+        self._hist_drain = None
 
     def shard_index(self, mid: bytes) -> int:
         # murmur3(id) % numShards (aggregator.go:505, shardset.go:148).
@@ -1066,10 +1070,13 @@ class Aggregator:
         """Consume every shard in shard order; forwards route to the next
         stage's shard, so a stage-2 total lands in this pass when its
         shard comes after the source's, else in the next pass."""
+        t0 = time.perf_counter()
         out = []
         for sh in self.shards:
             out.extend(sh.consume(target_nanos, flush_handler,
                                   forward_sink=self._route_forwards))
+        if self._hist_drain is not None:
+            self._hist_drain.record(time.perf_counter() - t0)
         return out
 
     def counters(self) -> dict:
@@ -1093,3 +1100,23 @@ class Aggregator:
                     ml.timed_rejects["too_far_future"])
                 out["new_series_rejected"] += ml.new_series_rejected
         return out
+
+
+def instrument_aggregator(instrument, aggregator: "Aggregator"):
+    """Mirror the aggregator's counters into gauges under
+    ``<scope>.aggregator.*`` at every registry scrape, via the registry's
+    collector hook, and attach the drain-latency histogram.  Returns the
+    collector fn; pass it to ``registry.unregister_collector`` at
+    shutdown (the registry holds a strong reference to the aggregator
+    through it)."""
+    scope = instrument.scope("aggregator")
+    # window-drain latency, interned once here, recorded inside
+    # Aggregator.consume
+    aggregator._hist_drain = scope.histogram("drain_seconds")
+
+    def collect():
+        for name, v in aggregator.counters().items():
+            scope.gauge(name).update(v)
+
+    scope.registry.register_collector(collect)
+    return collect

@@ -38,6 +38,9 @@ class DownsamplerOptions:
     num_windows: int = 4
     timer_sample_capacity: int = 1 << 18
     quantiles: tuple = (0.5, 0.95, 0.99)
+    # the lists' arena layout ("" | auto -> packed; f64 = the scatter
+    # oracle): where the reference reads its process layout seam
+    layout: str = ""
 
 
 class Downsampler:
@@ -80,6 +83,7 @@ class Downsampler:
                 num_windows=self.opts.num_windows,
                 timer_sample_capacity=self.opts.timer_sample_capacity,
                 quantiles=self.opts.quantiles,
+                layout=self.opts.layout,
                 storage_policies=(sp,),
             )
             ml = self._lists[sp] = MetricList(sp, aopts, device=self.device)

@@ -285,3 +285,46 @@ class Tracer:
 
 
 NOOP_TRACER = Tracer(enabled=False)
+
+
+# -- cross-process trace assembly -------------------------------------------
+
+
+def traces_response(tracer: "Tracer", trace_id=None,
+                    name: str | None = None) -> dict:
+    """The ``/api/v1/debug/traces`` response document — ONE
+    implementation shared by the HTTP API's handlers.  ``trace_id`` → that trace's spans parent-before-child;
+    ``name`` → spans of one tracepoint; default → ring inventory + raw
+    spans."""
+    if trace_id is not None:
+        tid = int(trace_id)
+        spans = [s.to_dict() for s in tracer.finished()
+                 if s.trace_id == tid]
+        return {"status": "success",
+                "data": join_traces(spans).get(tid, [])}
+    return {"status": "success",
+            "inventory": tracer.inventory() if name is None else None,
+            "data": [s.to_dict() for s in tracer.finished(name)]}
+
+
+def join_traces(span_dicts: list[dict]) -> dict[int, list[dict]]:
+    """Group span dicts (``Span.to_dict`` rows, typically collected
+    from several processes' debug endpoints) by trace_id, each trace's
+    spans ordered parent-before-child where links allow."""
+    by_trace: dict[int, list[dict]] = {}
+    for s in span_dicts:
+        by_trace.setdefault(int(s["trace_id"]), []).append(s)
+    for spans in by_trace.values():
+        by_id = {s["span_id"]: s for s in spans}
+
+        def depth(s, _seen=None) -> int:
+            seen = _seen or set()
+            d = 0
+            while s.get("parent_id") in by_id and s["span_id"] not in seen:
+                seen.add(s["span_id"])
+                s = by_id[s["parent_id"]]
+                d += 1
+            return d
+
+        spans.sort(key=lambda s: (depth(s), s["start_ns"]))
+    return by_trace

@@ -22,8 +22,9 @@ open in-memory window — the same two-source merge the reference does with
 
 ``device=None`` means CUDA (raises without one); the ``Database`` passes
 its device to every shard's buffer, to the index's bitset executor and to
-the flush's batched encoder.  ``instrument=`` takes only ``None``: the
-instrument registry is not ported.  Left out beside the JAX package: the
+the flush's batched encoder.  ``instrument=`` takes a scope of the port's
+registry (``m3_tpu_torch.instrument``) and keeps the reference's
+counters and histograms under ``db``.  Left out beside the JAX package: the
 block-level replication surface (repair and peers bootstrap), the
 placement template for namespaces created later, and ``drop_shard``.
 """
@@ -32,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from pathlib import Path
 
 from typing import Dict, Iterable, List, Sequence
@@ -688,11 +690,19 @@ class Database:
                  instrument=None, tracer=None, limits: QueryLimits | None = None,
                  new_series_limiter: NewSeriesLimiter | None = None,
                  device=None):
-        if instrument is not None:
-            raise NotImplementedError(
-                "instrument= is not ported: the instrument registry is not "
-                "part of m3_tpu_torch yet")
         self.opts = opts or DatabaseOptions()
+        self._scope = instrument.scope("db") if instrument is not None else None
+        # flush/snapshot latency: windowed mergeable histograms (the
+        # /health ``latency`` section), interned once — these paths run
+        # per mediator tick and must not pay a registry intern each time
+        self._hist_tick = (self._scope.histogram("tick_seconds")
+                           if self._scope is not None else None)
+        self._hist_snapshot = (self._scope.histogram("snapshot_seconds")
+                               if self._scope is not None else None)
+        # per-batch ingest latency at the storage boundary (every front
+        # door; WAL replay excluded by construction)
+        self._hist_write = (self._scope.histogram("write_batch_seconds")
+                            if self._scope is not None else None)
         self.device = resolve_device(device)
         self.tracer = tracer if tracer is not None else NOOP_TRACER
         self.limits = limits if limits is not None else NO_LIMITS
@@ -703,7 +713,7 @@ class Database:
         # meaningful serialization beyond what the batched design has.
         self._mu = threading.RLock()
         Path(self.opts.root).mkdir(parents=True, exist_ok=True)
-        self.block_cache = BlockCache()
+        self.block_cache = BlockCache(instrument=instrument)
         # Engine-wide new-series rate limiter shared by every shard's
         # allocator (0 = unlimited).
         self.new_series_limiter = (
@@ -717,9 +727,15 @@ class Database:
                 corruption_cb=self._note_corruption, device=self.device,
             )
         self.commitlog = (
-            CommitLogWriter(self.opts.root,
-                            rotate_bytes=self.opts.commitlog_rotate_bytes)
-            if self.opts.commitlog_enabled else None
+            CommitLogWriter(
+                self.opts.root,
+                rotate_bytes=self.opts.commitlog_rotate_bytes,
+                # fsync wall time on the db scope: a stalling disk is
+                # SLO-visible long before it is full
+                fsync_histogram=(
+                    self._scope.histogram("commitlog_fsync_seconds")
+                    if self._scope is not None else None),
+            ) if self.opts.commitlog_enabled else None
         )
         self.corruption_detected = 0
         self.corruption_quarantined = 0
@@ -727,17 +743,33 @@ class Database:
 
     def _note_corruption(self, namespace: str, shard: int, block_start: int,
                          volume: int, err, quarantined: bool = True) -> None:
-        """Hook every shard's quarantine path reports through:
-        ``detected`` counts every corruption event; ``quarantined`` only
-        those where files were actually moved (a volume whose files
-        vanished before the move detects without quarantining)."""
+        """Hook every shard's quarantine path reports through (also the
+        ``corruption_*`` series on a node's /metrics): ``detected``
+        counts every corruption event; ``quarantined`` only those where
+        files were actually moved (a volume whose files vanished before
+        the move detects without quarantining)."""
         self.corruption_detected += 1
         if quarantined:
             self.corruption_quarantined += 1
+        if self._scope is not None:
+            self._scope.counter("corruption_detected").inc()
+            if quarantined:
+                self._scope.counter("corruption_quarantined").inc()
 
     def quarantine_inventory(self) -> list:
         """Reason dicts of everything under <root>/quarantine/."""
         return quar.list_quarantined(self.opts.root)
+
+    def quarantine_fileset_volume(self, namespace: str, shard: int,
+                                  block_start: int, volume: int,
+                                  err=None) -> None:
+        """Engine-locked quarantine of one fileset volume (the
+        scrubber's entry point — flushed-block bookkeeping must not
+        race ingest/tick)."""
+        with self._mu:
+            self.namespaces[namespace].shards[shard].quarantine_volume(
+                block_start, volume, err
+            )
 
     # ---- placement-driven shard ownership -------------------------------
 
@@ -784,10 +816,14 @@ class Database:
         vals = np.asarray(vals, np.float64)
         if now_nanos is None:
             now_nanos = int(ts.max())
+        t0 = time.perf_counter()
         with self._mu, self.tracer.start_span(
             Tracepoint.DB_WRITE_BATCH, {"n": len(ids), "ns": namespace}
         ):
-            res = ns.write_batch(ids, ts, vals, now_nanos)
+            if self._scope is not None:
+                self._scope.counter("writes").inc(len(ids))
+            res = self._counted(lambda: ns.write_batch(ids, ts, vals,
+                                                       now_nanos))
             # Log AFTER acceptance so the WAL never contains
             # rate-limit-rejected samples (the reference writes the
             # commitlog after the in-memory write succeeds, as an async
@@ -802,7 +838,24 @@ class Database:
                     self.commitlog.write_batch(
                         [sid for sid, a in zip(ids, acc) if a],
                         ts[acc], vals[acc], namespace=namespace.encode())
+            if self._hist_write is not None:
+                self._hist_write.record(time.perf_counter() - t0)
             return res
+
+    def _counted(self, write):
+        """Run one namespace write, counting its not-owned and rejected
+        samples on the db scope (the reference's counters)."""
+        try:
+            res = write()
+        except ShardNotOwnedError:
+            if self._scope is not None:
+                self._scope.counter("shard_not_owned").inc()
+            raise
+        if self._scope is not None and getattr(res, "not_owned", 0):
+            self._scope.counter("shard_not_owned").inc(res.not_owned)
+        if self._scope is not None and res.rejected:
+            self._scope.counter("new_series_rejected").inc(res.rejected)
+        return res
 
     def write_tagged_batch(self, namespace: str, docs: Sequence[Document], ts, vals,
                            now_nanos: int | None = None) -> int:
@@ -811,11 +864,15 @@ class Database:
         vals = np.asarray(vals, np.float64)
         if now_nanos is None:
             now_nanos = int(ts.max())
+        t0 = time.perf_counter()
         with self._mu, self.tracer.start_span(
             Tracepoint.DB_WRITE_BATCH, {"n": len(docs), "ns": namespace,
                                         "tagged": True}
         ):
-            res = ns.write_tagged_batch(docs, ts, vals, now_nanos)
+            if self._scope is not None:
+                self._scope.counter("writes_tagged").inc(len(docs))
+            res = self._counted(lambda: ns.write_tagged_batch(
+                docs, ts, vals, now_nanos))
             if self.commitlog is not None:
                 # Tags ride the annotation field so WAL replay can rebuild
                 # index documents (the reference's commitlog entries carry
@@ -833,6 +890,8 @@ class Database:
                         namespace=namespace.encode(),
                         annotations=[encode_tags(d) for d in kept],
                     )
+            if self._hist_write is not None:
+                self._hist_write.record(time.perf_counter() - t0)
             return res
 
     def query_ids(self, namespace: str, q: Query, start: int, end: int):
@@ -846,6 +905,8 @@ class Database:
             )
 
     def read(self, namespace: str, sid: bytes, start: int, end: int):
+        if self._scope is not None:
+            self._scope.counter("reads").inc()
         self.limits.inc_series(1)
         # bytes pre-check: an already-exhausted window rejects the read
         # BEFORE decoding; the exact size still accounts afterwards (it
@@ -862,6 +923,8 @@ class Database:
         """Batched :meth:`read` (one engine-lock acquisition, one
         sorted-window snapshot per open block instead of per id).  Same
         limits accounting units as the single-id path."""
+        if self._scope is not None:
+            self._scope.counter("reads").inc(len(sids))
         self.limits.inc_series(len(sids))
         self.limits.inc_bytes(0)
         with self._mu, self.tracer.start_span(
@@ -871,9 +934,13 @@ class Database:
         return out
 
     def tick(self, now_nanos: int) -> dict:
+        t0 = time.perf_counter()
         with self._mu, self.tracer.start_span(Tracepoint.DB_TICK):
-            return {name: ns.tick(now_nanos)
-                    for name, ns in self.namespaces.items()}
+            stats = {name: ns.tick(now_nanos)
+                     for name, ns in self.namespaces.items()}
+        if self._hist_tick is not None:
+            self._hist_tick.record(time.perf_counter() - t0)
+        return stats
 
     def snapshot(self) -> dict:
         """Capture every namespace's un-flushed buffers as snapshot
@@ -882,6 +949,7 @@ class Database:
         log rotates first so the snapshot covers everything in the
         now-inactive logs — recovery then replays only seq >= the active
         log (`snapshot_metadata_write.go` commitlog-identifier role)."""
+        t0 = time.perf_counter()
         with self._mu, self.tracer.start_span(Tracepoint.DB_SNAPSHOT):
             seq = snap.next_snapshot_seq(self.opts.root)
             if self.commitlog is not None:
@@ -897,6 +965,8 @@ class Database:
                     written += shard.snapshot_blocks(snap_root)
                 index_segs += ns.index.snapshot_mutable(snap_root)
             snap.commit_snapshot(self.opts.root, seq, cl_seq)
+        if self._hist_snapshot is not None:
+            self._hist_snapshot.record(time.perf_counter() - t0)
         return {"seq": seq, "series_blocks": written, "index_segments": index_segs}
 
     def cleanup(self, now_nanos: int) -> dict:

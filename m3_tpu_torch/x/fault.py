@@ -15,9 +15,11 @@ name, mode)`` as a string, so a scenario replays identically; a spec
 fires at most ``n`` times, with probability ``p``, after skipping
 ``after`` passes.  Counters survive re-arming.
 
-The port's copy of the parts of ``m3_tpu/x/fault.py`` that ``persist``
-and the storage adapter use: no spec grammar, no environment arming and
-no HTTP builders.  The registry is this package's own, apart from the
+The port's copy of ``m3_tpu/x/fault.py`` without its environment arming
+(``M3_FAULTPOINTS``): arm in code or through the node's
+``/api/v1/debug/faults`` body, whose spec grammar (:func:`parse_faults`)
+and builders (:func:`registry_response`, :func:`apply_request`) are
+copies.  The registry is this package's own, apart from the
 reference package's.
 """
 
@@ -29,8 +31,9 @@ import time
 from typing import Callable, Dict, List
 
 __all__ = [
-    "FaultInjected", "FaultSpec", "arm", "armed", "disarm", "fire",
-    "mangle", "counters", "reset_counters",
+    "FaultInjected", "FaultSpec", "arm", "armed", "apply_request",
+    "disarm", "fire", "mangle", "counters", "parse_faults",
+    "registry_response", "reset_counters", "snapshot",
 ]
 
 
@@ -84,6 +87,16 @@ class FaultSpec:
         with _lock:
             _trigger_totals[key] = _trigger_totals.get(key, 0) + 1
         return True
+
+    def to_dict(self) -> dict:
+        """Wire shape of one armed spec (GET /api/v1/debug/faults)."""
+        with self._lock:
+            return {
+                "point": self.point, "mode": self.mode, "p": self.p,
+                "n": self.n, "after": self.after,
+                "ms": self.delay_s * 1000.0, "seed": self.seed,
+                "passes": self._passes, "triggers": self.triggers,
+            }
 
 
 _lock = threading.Lock()
@@ -180,6 +193,112 @@ def mangle(point: str, data: bytes,
             i = spec._rng.randrange(len(data))
             data = data[:i] + bytes([data[i] ^ 0xFF]) + data[i + 1:]
     return action, data
+
+
+def parse_faults(raw: str) -> List[tuple]:
+    """Parse the fault-spec grammar into ``[(point, mode, kwargs)]``
+    WITHOUT arming anything (validation happens before mutation — a
+    half-armed malformed request would leave the node in a state the
+    caller never asked for).
+
+    Grammar: ``point=mode[:key=value]*`` joined by ``;``.  Keys:
+    ``p`` (probability), ``n`` (max triggers), ``ms`` (delay),
+    ``after`` (skip first k passes), ``seed``.  One grammar everywhere:
+    the reference's ``M3_FAULTPOINTS`` env var and the
+    ``/api/v1/debug/faults`` body mid-run parse through this exact
+    function.  A malformed entry raises ValueError — a typo
+    silently arming nothing would invalidate the scenario the flag
+    exists for.
+    """
+    out: List[tuple] = []
+    for entry in raw.split(";"):
+        entry = entry.strip()
+        if not entry:
+            continue
+        head, *opts = entry.split(":")
+        point, sep, mode = head.partition("=")
+        if not sep or not point or not mode:
+            raise ValueError(f"faultpoints entry {entry!r}: "
+                             "expected point=mode[:key=value]*")
+        if mode not in MODES:
+            raise ValueError(f"faultpoints entry {entry!r}: mode {mode!r} "
+                             f"must be one of {MODES}")
+        kw: dict = {}
+        for opt in opts:
+            k, sep, v = opt.partition("=")
+            if not sep:
+                raise ValueError(f"faultpoints option {opt!r} in {entry!r}")
+            if k == "p":
+                kw["p"] = float(v)
+            elif k == "n":
+                kw["n"] = int(v)
+            elif k == "ms":
+                kw["delay_ms"] = float(v)
+            elif k == "after":
+                kw["after"] = int(v)
+            elif k == "seed":
+                kw["seed"] = int(v)
+            else:
+                raise ValueError(f"faultpoints key {k!r} in {entry!r}")
+        out.append((point, mode, kw))
+    return out
+
+
+def snapshot() -> List[dict]:
+    """Every armed spec as a dict (point/mode/knobs + live pass/trigger
+    counts), sorted by point then mode — the readable half of the
+    runtime re-arm surface."""
+    with _lock:
+        specs = [s for lst in _points.values() for s in lst]
+    return sorted((s.to_dict() for s in specs),
+                  key=lambda d: (d["point"], d["mode"]))
+
+
+# -- HTTP builders (admin + main API /api/v1/debug/faults) -------------------
+#
+# Served by server/http_api.py like tracing.traces_response.
+
+
+def registry_response() -> dict:
+    """GET body: armed specs + the process counters (passes survive
+    disarm, trigger totals survive re-arm)."""
+    return {"armed": snapshot(), "counters": counters()}
+
+
+def apply_request(body: dict) -> dict:
+    """POST body → mutate the registry, return the post-state.
+
+    ``{"disarm": true | ["point", ...], "reset_counters": bool,
+    "arm": "point=mode[:key=value]*;..."}`` — disarm applies FIRST so
+    one request is a complete re-arm (the chaos scheduler's
+    window-transition shape), and counters are PRESERVED unless
+    ``reset_counters`` asks otherwise.  Unknown keys raise (a typo'd
+    request must not silently no-op)."""
+    unknown = set(body) - {"arm", "disarm", "reset_counters"}
+    if unknown:
+        raise ValueError(f"debug/faults: unknown keys {sorted(unknown)}")
+    # validate BEFORE mutating: a bad arm spec must not leave the node
+    # disarmed when the caller asked for an atomic re-arm
+    specs = parse_faults(body.get("arm") or "")
+    dis = body.get("disarm")
+    # a bare string would iterate per CHARACTER and disarm nothing
+    # (disarm() pops unknown points silently) — the silent no-op this
+    # endpoint exists to prevent
+    if not (dis is None or isinstance(dis, (bool, list, tuple))):
+        raise ValueError(
+            "debug/faults: 'disarm' must be true or a list of points")
+    if dis is True:
+        disarm()
+    elif dis:
+        for point in dis:
+            disarm(str(point))
+    if body.get("reset_counters"):
+        reset_counters()
+    for point, mode, kw in specs:
+        arm(point, mode, **kw)
+    out = registry_response()
+    out["armed_count"] = len(specs)
+    return out
 
 
 def counters() -> Dict[str, int]:

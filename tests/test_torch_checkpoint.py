@@ -335,6 +335,19 @@ def test_checkpointer_sets_corrupt_file_aside(tmp_path):
     assert (tmp_path / "agg.ckpt.corrupt").exists() and not (tmp_path / "agg.ckpt").exists()
     assert ck.status() == {"path": str(tmp_path / "agg.ckpt"), "saves": 1,
                            "save_errors": 0, "restores": 1, "corrupt": 1}
-    with pytest.raises(NotImplementedError, match="instrument"):
-        tck.AggregatorCheckpointer(ds, tmp_path / "x", instrument=object())
+    # instrument= counts the same events on the registry (it raised
+    # before the registry was ported)
+    import m3_tpu_torch.instrument as tinst
+
+    reg = tinst.new_registry()
+    ick = tck.AggregatorCheckpointer(ds, tmp_path / "y.ckpt", instrument=reg.scope("m3tpu"))
+    ick.save()
+    assert ick.restore() is True
+    _flip(tmp_path / "y.ckpt", 20)
+    assert ick.restore() is False
+    text = reg.render_prometheus()
+    for line in ("m3tpu_aggregator_checkpoint_saves 1",
+                 "m3tpu_aggregator_checkpoint_restores 1",
+                 "m3tpu_aggregator_checkpoint_corrupt 1"):
+        assert line in text, line
     db.close()

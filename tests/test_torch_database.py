@@ -327,9 +327,18 @@ def test_entry_points_need_a_device_or_cpu(tmp_path):
     db = tdb.Database(tdb.DatabaseOptions(root=str(tmp_path / "b")), device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tengine.Engine(tadapter.DatabaseStorage(db))
-    with pytest.raises(NotImplementedError, match="instrument"):
-        tdb.Database(tdb.DatabaseOptions(root=str(tmp_path / "c")), device="cpu",
-                     instrument=object())
+    # instrument= takes a scope of the port's registry (it raised before
+    # the registry was ported): the reference's db counters
+    import m3_tpu_torch.instrument as tinst
+
+    reg = tinst.new_registry()
+    idb = tdb.Database(tdb.DatabaseOptions(root=str(tmp_path / "c")), device="cpu",
+                       instrument=reg.scope("m3tpu"))
+    idb.write_batch("default", [b"a", b"b"], [START + SEC] * 2, [1.0, 2.0])
+    idb.read("default", b"a", START, START + BLOCK)
+    text = reg.render_prometheus()
+    assert "m3tpu_db_writes 2" in text and "m3tpu_db_reads 1" in text
+    idb.close()
     db.close()
 
 

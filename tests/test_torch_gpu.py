@@ -699,3 +699,64 @@ def test_forwarding_on_card_equals_cpu():
         passes[str(d)] = got
     assert passes["cpu"] == passes[str(dev)]
     assert sum(len(p) for p in passes["cpu"]) > 0
+
+
+@pytest.mark.gpu
+def test_node_on_card_equals_node_on_cpu(tmp_path):
+    """A small node (m3_tpu_torch.server.assembly.run_node) on the card
+    and one on the CPU get the same Prometheus remote writes and
+    queries: bit-equal answers (selectors and max_over_time, elementwise
+    on both devices; the remote read body byte for byte), then a
+    mediator pass past the block whose warm flush launches kernel #1 on
+    the card, and every fileset and commit-log file sha256-equal."""
+    import hashlib
+    import json
+    import urllib.request
+    from pathlib import Path
+
+    from m3_tpu_torch.server import prom_remote as pr
+    from m3_tpu_torch.server.assembly import run_node
+
+    dev = _cuda_or_skip()
+    block = 2 * 3600 * SEC
+    t0 = START // block * block
+    series = [pr.PromTimeSeries(
+        {b"__name__": b"reqs", b"host": b"h%d" % i},
+        [(t0 + k * 10 * SEC, float(i * 1000 + k * (i + 1))) for k in range(60)])
+        for i in range(40)]
+    body = pr.build_write_request(series)
+    end = (t0 + 590 * SEC) // SEC
+    queries = [f"/api/v1/query_range?query=reqs&start={t0 // SEC}&end={end}&step=10",
+               f"/api/v1/query_range?query=max_over_time(reqs[1m])"
+               f"&start={t0 // SEC + 60}&end={end}&step=30"]
+    read = pr.snappy.compress(pr._emit_len(1, pr._emit_field(1, 0, pr._emit_varint(
+        t0 // 10**6)) + pr._emit_field(2, 0, pr._emit_varint(end * 1000)) + pr._emit_len(
+        3, pr._emit_field(1, 0, pr._emit_varint(0)) + pr._emit_len(2, b"__name__")
+        + pr._emit_len(3, b"reqs"))))
+    answers, digests = {}, {}
+    for d in ("cpu", dev):
+        root = tmp_path / str(d).replace(":", "")
+        asm = run_node(f"db: {{root: {root}, namespaces: {{default: {{num_shards: 2}}}}}}\n"
+                       "coordinator: {listen_port: 0}\nmediator: {tick_interval: 1h}\n",
+                       device=d)
+        try:
+            base = f"http://127.0.0.1:{asm.port}"
+            req = urllib.request.Request(base + "/api/v1/prom/remote/write", data=body)
+            assert urllib.request.urlopen(req).status == 204
+            got = [urllib.request.urlopen(base + q).read() for q in queries]
+            got.append(urllib.request.urlopen(urllib.request.Request(
+                base + "/api/v1/prom/remote/read", data=read)).read())
+            before = ep.launches
+            asm.mediator.run_once(t0 + block + 11 * 60 * SEC)
+            if d == dev:
+                assert ep.launches > before
+            got += [urllib.request.urlopen(base + q).read() for q in queries]
+            answers[str(d)] = got
+        finally:
+            asm.close()
+        digests[str(d)] = {str(p.relative_to(root)): hashlib.sha256(p.read_bytes()).hexdigest()
+                           for p in sorted(Path(root).rglob("*"))
+                           if p.is_file() and ("fileset" in p.name or "commitlog" in p.name)}
+    assert answers["cpu"] == answers[str(dev)]
+    assert json.loads(answers["cpu"][0])["data"]["result"]
+    assert digests["cpu"] == digests[str(dev)] and any("fileset" in k for k in digests["cpu"])

@@ -20,6 +20,13 @@ def test_every_module_imports_with_jax_blocked():
     mods = list(_modules())
     assert "m3_tpu_torch.encoding.m3tsz_torch" in mods
     assert "m3_tpu_torch.aggregator.engine" in mods
+    # the node: config, instruments, substrate, mediator, front door
+    for m in ("core.config", "instrument", "instrument.procstats", "x",
+              "x.admission", "x.breaker", "x.diskbudget", "x.retry",
+              "storage.mediator", "storage.scrub", "server.snappy",
+              "server.prom_remote", "server.influx", "server.http_api",
+              "server.assembly", "server.node_main"):
+        assert f"m3_tpu_torch.{m}" in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['m3_tpu'] = None\n"
