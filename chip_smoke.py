@@ -109,13 +109,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 14. the storage node's write -> flush -> read path at BASELINE config
    #2's shape with ``NamespaceOptions()`` defaults (2 h blocks, 48 h
    retention, bufferPast 10 m, bufferFuture 2 m, 4 shards, cold writes
-   on) and the commit log on: 100,000 untagged gauges x 360 scrapes at
-   10 s over the first hour of one 2 h block (phase 3's value mix; 720
-   would fill it), 1 % rewritten at the
+   on) and the commit log on: 100,000 untagged gauges x 120 scrapes at
+   10 s over the first 20 minutes of one 2 h block (phase 3's value mix;
+   720 would fill it), 1 % rewritten at the
    same timestamp with another value, 0.1 % two hours late (cold lists)
-   and 100 samples beyond bufferFuture; the first 60 scrapes through
+   and 100 samples beyond bufferFuture; the first 20 scrapes through
    ``Database.write_batch`` (shard hash, slot resolve, commit log,
-   buffer), the other 300 through each shard's ``buffer.write`` with
+   buffer), the other 100 through each shard's ``buffer.write`` with
    the slots resolved; ``tick`` past the block's end plus bufferPast
    (drain sort, ``encode_batch`` with kernel #1 held bit for bit
    against its plain version on its inputs, fileset write), late writes
@@ -123,7 +123,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    block; every volume decoded on the card (kernel #2, held against its
    plain version) equal bit for bit to a last-write-wins oracle of
    everything acknowledged; ``read_batch`` of 1,000 series equal to the
-   oracle; snapshot and cleanup, then 15 scrapes (150 s, 1,500,000
+   oracle; snapshot and cleanup, then 10 scrapes (100 s, 1,000,000
    samples) of the next block through ``Database.write_batch``, left
    unflushed, and a restart whose ``bootstrap()`` replays their commit
    log into the card's buffers; the same reads, now over that block
@@ -133,7 +133,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    events), one profiled scrape, drain and encode times per shard,
    fileset write time, peak memory;
 15. PromQL over the storage node: phase 12's config #5 counters written
-   into one open block (the first 20 scrapes through
+   into one open block (the first 5 scrapes through
    ``write_tagged_batch``, index insert and commit log; the rest through
    the shard buffers), then ``histogram_quantile(0.99,
    rate(m3_req_bucket[5m]))`` over 1 h at 15 s through
@@ -147,7 +147,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    counters ``http_requests_total`` over {app: 100, endpoint: 20,
    status_code: 5, instance: 100}, integer deltas in [0, 1000), 10 s
    scrapes over two one-minute windows (two scrapes a window, cut from
-   six, so each window folds two deltas a series), all through ``Downsampler.write_batch`` on the card, with M3's
+   six, so each window folds two deltas a series), all through
+   ``Downsampler.write_batch`` on the card, with M3's
    documented coordinator rules: a mapping rule to ``1m:48h``, a rollup
    to Sum by (app, endpoint, status_code) then Add, and a two-stage
    rollup (by route, then Sum by app, one window later), into a storage
@@ -160,7 +161,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bit; a tick past the block's end plus bufferPast warm-flushes the
    output namespace (kernel #1 held against its plain version on its
    inputs) and every volume, decoded on the card (kernel #2, held
-   likewise), equals the oracle; the same rules over the first 2^14
+   likewise), equals the oracle; the same rules over the first 2^12
    series and one window (two scrapes) on the card and on the CPU write
    sha256-identical files;
    write_batch samples/s with host rows (match, grouping, resolve, arena
@@ -210,13 +211,49 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    idle share of one profiled write request and of the query, flush,
    bootstrap, peak memory.
 
+19. the aggregator tier at BASELINE config #3's width: 1,000,000 series
+   (500,000 counters, 500,000 gauges), each sampled every 10 s: two of
+   the six scrapes that fill one 1 m window (cut from six) and the first
+   of the next (3M samples), sent by an ``AggregatorClient`` (one-instance
+   placement of 64 shards, murmur3 routing, per-frame acks) as
+   METRIC_BATCH frames of at most 2^16 samples (the client queue's
+   default size, which one flush drains as one frame) to
+   an ``IngestServer`` on localhost feeding ``aggregator_sink`` in front
+   of the aggregator on the card (64 shards, packed layout, native
+   resolver, 2^15 slots a type a shard, ``1m:48h``); a ``FlushManager``
+   ticking as leader on a flush thread under the sink's lock publishes
+   each closed window's rows as PASSTHROUGH_BATCH payloads on a
+   ``BusServer`` topic (``aggregated_metrics``, SHARED ``coordinator``),
+   and a ``RemoteBusConsumer`` polls and acks them; acked == sent, every
+   flushed (id, window) value equal to a numpy oracle bit for bit, every
+   message delivered once and none left unacked; window 1 through the
+   HOPS tail (reshape, ``encode_batch`` with kernel #1 held against its
+   plain version, ``DataFileSetWriter``) and decoded on the card (kernel
+   #2, held likewise) equal to the flushed values; the first 2^14 series
+   through the same server code on the CPU: the same rows and a
+   sha256-equal volume; (a) the pinned HOPS corpus through
+   ``m3_tpu_torch.tools.hops`` on the card, its volume's sha256 equal to
+   the JAX package's; (b) an HA pair (mirrored placement of 8 shards,
+   RF 2, two servers on one KV) fed 100,000 counters for three windows, the leader
+   resigning in the second: the union of emitted windows equals a
+   single instance's run; (c) ``max_queue_frames=2`` under six clients:
+   BACKOFFs, parked and retried frames, every acknowledged sample in the
+   flush; TIMED_BATCH, PASSTHROUGH_BATCH and FORWARDED_BATCH frames of
+   10,000 samples card == CPU; samples/s with the host split (client
+   routing, frame encode, server decode, the sink's shard routing,
+   resolver and arena, queue wait), one profiled frame, consume a
+   window, bus and volume seconds, kernel #1's time at the flush's
+   shapes, each HOPS hop's wall and share, peak memory.
+
 Each kernel record carries ``launches`` (phase 3's pass or phase 7's
 drive), ``query_launches`` (phase 13), ``storage_launches`` (phase
 14's write, flush, read and restart: kernel #1 once per shard per warm
 flush, no other), ``storage_check_launches`` (phase 14's volume
 check: kernel #2), ``downsample_launches`` (phases 16-17; each must
 be above 0), ``node_launches`` (phase 18's node: kernel #1 in the
-flush) and ``node_check_launches`` (its volume check: kernel #2).  The last three lines are a JSON line of kernel records, the card's name
+flush) and ``node_check_launches`` (its volume check: kernel #2), and
+``tier_launches`` (phase 19's main path: kernel #1 in the volume's
+encode, kernel #2 in its check).  The last three lines are a JSON line of kernel records, the card's name
 and power limit, and the result line ``{"ok": true, "device": {...}}``.
 Exact comparisons throughout, except where a phase names its tolerance.
 """
@@ -1316,28 +1353,41 @@ def read_launches() -> dict:
 class HostClock:
     """Host seconds spent in named callables, by wrapping them in place
     for one run (``restore`` puts them back).  Each key gets its own
-    (exclusive) time: a wrapped call inside another is taken out of the
-    outer one's, so the keys add up to no more than the run's wall."""
+    (exclusive) time: a wrapped call inside another, on the same thread,
+    is taken out of the outer one's, so the keys add up to no more than
+    the run's wall on each thread."""
 
     def __init__(self):
+        import threading
+
         self.s: dict = {}
         self.calls: dict = {}
-        self._inner = [0.0]  # time of wrapped calls nested in the open one
+        self._tls = threading.local()  # per thread: time of wrapped calls
+        self._lock = threading.Lock()  # nested in the open one
         self._undo: list = []
+
+    def _inner(self) -> list:
+        stack = getattr(self._tls, "stack", None)
+        if stack is None:
+            stack = self._tls.stack = [0.0]
+        return stack
 
     def wrap(self, owner, attr: str, key: str) -> None:
         fn = getattr(owner, attr)
 
         def timed(*a, **kw):
-            self._inner.append(0.0)
+            inner = self._inner()
+            inner.append(0.0)
             t0 = time.perf_counter()
             try:
                 return fn(*a, **kw)
             finally:
                 dt = time.perf_counter() - t0
-                self.s[key] = self.s.get(key, 0.0) + dt - self._inner.pop()
-                self.calls[key] = self.calls.get(key, 0) + 1
-                self._inner[-1] += dt
+                own = dt - inner.pop()
+                inner[-1] += dt
+                with self._lock:
+                    self.s[key] = self.s.get(key, 0.0) + own
+                    self.calls[key] = self.calls.get(key, 0) + 1
 
         setattr(owner, attr, timed)
         self._undo.append((owner, attr, fn))
@@ -1346,6 +1396,22 @@ class HostClock:
         for owner, attr, fn in reversed(self._undo):
             setattr(owner, attr, fn)
         self._undo.clear()
+
+
+def words_touched(words_t, offs, widths) -> int:
+    """Stream words that ``extract_fields64_t``'s in-range fields need:
+    a field of w bits at bit offset o spans words o // 64 to
+    (o + w - 1) // 64, at most two (w <= 64)."""
+    import torch
+
+    Wd, S = words_t.shape
+    o, w = offs.long(), widths.long()
+    ok = (w > 0) & (w <= 64) & (o >= 0) & (o + w <= Wd * 64)
+    col = torch.arange(S, device=offs.device).expand_as(o)[ok]
+    mask = torch.zeros((Wd, S), dtype=torch.bool, device=offs.device)
+    mask[(o[ok] // 64), col] = True
+    mask[((o[ok] + w[ok] - 1) // 64), col] = True
+    return int(mask.sum())
 
 
 class KernelCheck:
@@ -1385,12 +1451,13 @@ class KernelCheck:
     def summary(self, *others) -> dict:
         """Calls and largest bit difference (this and ``others``), and the
         kernel's, its plain version's and its bound's times on the last
-        call's inputs (rows of ``extract_fields64_t``: each input read once,
-        the output written once)."""
+        call's inputs (rows of ``extract_fields64_t``: the lanes read once,
+        each stream word a field needs read once, the output written
+        once)."""
         calls = self.calls + sum(o.calls for o in others)
         assert self.calls > 0 and all(o.calls > 0 for o in others), "the kernel was not called"
         words_t, offs, widths = self.args
-        nbytes = offs.numel() * (4 + 4 + 8) + words_t.numel() * 8
+        nbytes = offs.numel() * (4 + 4 + 8) + words_touched(words_t, offs, widths) * 8
         return {"ext_calls": calls,
                 "ext_max_abs_err": max([self.err] + [o.err for o in others]),
                 "ext_words_shape": list(words_t.shape), "ext_lanes_shape": list(offs.shape),
@@ -1821,14 +1888,14 @@ BLOCK = 2 * 3600 * SEC  # NamespaceOptions() block size
 STORE_START = (1_700_000_000 * SEC) // BLOCK * BLOCK  # a block boundary
 STORE_SCRAPE = 10 * SEC
 STORE_SERIES = 100_000  # config #2's width
-STORE_SCRAPES = 360  # of the block's 720 (PERF.md §4)
-STORE_ENTRY_SCRAPES = 60  # of the 720 through Database.write_batch (PERF.md §4)
-STORE_TAIL_SCRAPES = 15  # of the next block, replayed from the commit log (PERF.md §4)
+STORE_SCRAPES = 120  # of the block's 720 (PERF.md §4)
+STORE_ENTRY_SCRAPES = 20  # of the 720 through Database.write_batch (PERF.md §4)
+STORE_TAIL_SCRAPES = 10  # of the next block, replayed from the commit log (PERF.md §4)
 STORE_CHECK_SERIES = 1024  # the card-vs-CPU Database (PERF.md §4)
 STORE_CHECK_SCRAPES = 120  # its scrapes (PERF.md §4)
 STORE_READ_SAMPLE = 1000
 STORE_FUTURE = 100  # samples beyond bufferFuture
-PROMQL_ENTRY_SCRAPES = 20  # of the 261 through Database.write_tagged_batch (PERF.md §4)
+PROMQL_ENTRY_SCRAPES = 5  # of the 261 through Database.write_tagged_batch (PERF.md §4)
 
 
 def store_root(name: str) -> Path:
@@ -2464,7 +2531,7 @@ DS_SERIES = DS_APPS * DS_ENDPOINTS * DS_CODES * DS_INSTANCES
 DS_WINDOWS = 2  # one-minute windows (1m:48h; PERF.md §4)
 DS_SCRAPES_PER_WINDOW = 2  # of the six 10 s scrapes a minute holds (PERF.md §4)
 DS_CKPT_AFTER = 3  # scrapes written before the checkpoint (window 2 half open)
-DS_CHECK_SERIES = 1 << 14  # the card-vs-CPU pair (PERF.md §4)
+DS_CHECK_SERIES = 1 << 12  # the card-vs-CPU pair (PERF.md §4)
 DS_POLICY = "1m:48h"  # its namespace's name is "1m:2d"
 # M3's documented coordinator rollup rules: a mapping rule, a rollup to Sum
 # over a groupBy list then Add, and a two-stage rollup
@@ -3604,6 +3671,794 @@ def node_drive(asm, bodies, tasks, ts, vals, ubs, start_s, seed, dev, card) -> t
     return t, launched, check_launched, place
 
 
+# ---- phase 19: the aggregator tier (wire -> ingest -> flush -> bus -> fileset) ----
+
+TIER_SERIES = 1_000_000  # BASELINE config #3's width: half counters, half gauges
+TIER_SHARDS = 64  # M3's documented aggregator placement
+TIER_SCRAPES = 7  # six 10 s scrapes fill one 1 m window, the seventh opens the next
+TIER_WINDOW1_SENT = 2  # of window 1's six scrapes, sent (PERF.md §4)
+TIER_SENT = tuple(range(TIER_WINDOW1_SENT)) + (TIER_SCRAPES - 1,)
+TIER_POLICY = "1m:48h"
+TIER_CAPACITY = 1 << 15  # slots a type a shard: 15,625 series a shard, room for skew
+TIER_TIMER_CAPACITY = 1 << 10  # the traffic holds no timers
+# samples a frame: the client's queue holds 2^16 samples (InstanceQueue's
+# default, as in m3_tpu/client/aggregator_client.py), and a flush sends
+# what it holds as one frame
+TIER_FRAME = 1 << 16
+TIER_CHECK = 1 << 14  # the first series (half of each type) held card against CPU
+HA_SERIES = 100_000  # counters
+HA_SHARDS = 8  # the pair's placement and aggregators (PERF.md §4)
+HA_SCRAPES = 6  # three 1 m windows of two 30 s scrapes; the leader resigns in the second
+OVERLOAD_CLIENTS, OVERLOAD_FRAMES, OVERLOAD_BATCH = 6, 8, 2_500
+KINDS_SAMPLES = 10_000  # in each of the timed, passthrough and forwarded frames
+SMALL_SHARDS = 4  # the overload and frame-kind aggregators
+# sha256 of the pinned HOPS corpus's volume (1,024 series x 320 s), as
+# m3_tpu.tools.hops.run_pipeline(root=...) writes it
+HOPS_PINNED_SHA256 = (
+    "ed52859a25cd0dcad9eda465ea4955d81e8218dd552641d955b2e156446bcf01")
+
+
+class TierTraffic:
+    """n series, one sample each every ``step`` for K scrapes from
+    ``T0_AGG`` (a minute boundary) with whole-second jitter: the first
+    half counters ``agg.cnt.*`` (all of them with ``counters_only``),
+    integer deltas in [0, 1000); the rest gauges ``agg.gau.*``, three
+    decimals, 0.1 % NaN.  Each scrape goes out in its own order."""
+
+    def __init__(self, seed: int, n: int, K: int = TIER_SCRAPES, step: int = 10 * SEC,
+                 counters_only: bool = False, prefix: bytes = b"agg"):
+        rng = np.random.default_rng(seed)
+        self.n, self.K, self.step = n, K, step
+        self.half = n if counters_only else n // 2
+        self.ids = ([prefix + b".cnt.%07d" % i for i in range(self.half)]
+                    + [prefix + b".gau.%07d" % i for i in range(n - self.half)])
+        self.mts = np.r_[np.full(self.half, 1), np.full(n - self.half, 3)].astype(np.uint8)
+        self.times = (T0_AGG + np.arange(K, dtype=np.int64)[:, None] * step
+                      + rng.integers(0, step // SEC, (K, n)) * SEC)
+        self.vals = np.empty((K, n))
+        self.vals[:, :self.half] = rng.integers(0, 1000, (K, self.half))
+        g = np.round(rng.normal(50, 20, (K, n - self.half)), 3) + 0.0
+        g[rng.random(g.shape) < 0.001] = np.nan
+        self.vals[:, self.half:] = g
+        self.perms = [rng.permutation(n) for _ in range(K)]
+
+    def frames(self, k: int, keep=None, shift: int = 0) -> list:
+        """Scrape k as ``write_batch`` arguments, its counters then its
+        gauges, in the scrape's order (only the series ``keep`` marks)."""
+        p = self.perms[k] if keep is None else self.perms[k][keep[self.perms[k]]]
+        out = []
+        for want in (1, 3):
+            q = p[self.mts[p] == want]
+            if q.size:
+                out.append((self.mts[q], [self.ids[i] for i in q], self.vals[k, q],
+                            self.times[k, q] + shift))
+        return out
+
+    def window_oracle(self, scrapes) -> np.ndarray:
+        """Each series' flushed value over ``scrapes`` (one window):
+        counters SUM, gauges LAST (the latest sample; a NaN stays)."""
+        v, t = self.vals[scrapes], self.times[scrapes]
+        out = np.empty(self.n)
+        out[:self.half] = v[:, :self.half].sum(axis=0)
+        last = np.argmax(t[:, self.half:], axis=0)
+        out[self.half:] = v[:, self.half:][last, np.arange(self.n - self.half)]
+        return out
+
+
+def tier_aggregator(dev, shards: int = TIER_SHARDS, **kw):
+    """The packed layout (the default) with the native resolver (the
+    default; it must build), arenas sized for one shard's series."""
+    from m3_tpu_torch.aggregator import engine as te
+    from m3_tpu_torch.metrics.policy import StoragePolicy
+
+    opts = te.AggregatorOptions(capacity=TIER_CAPACITY, num_windows=2,
+                                timer_sample_capacity=TIER_TIMER_CAPACITY,
+                                storage_policies=(StoragePolicy.parse(TIER_POLICY),))
+    agg = te.Aggregator(num_shards=shards, opts=opts, device=dev, **kw)
+    assert all(m.native for sh in agg.shards for ml in sh.lists.values()
+               for m in ml.maps.values()), "the native resolver did not build"
+    return agg
+
+
+def tier_server(agg, sink=None, **kw):
+    """An IngestServer on localhost feeding ``aggregator_sink(agg,
+    lock)`` (or ``sink``); returns (server, the sink's lock, registry)."""
+    import threading
+
+    from m3_tpu_torch import instrument
+    from m3_tpu_torch.server.ingest_tcp import aggregator_sink, serve_ingest_background
+
+    lock = threading.Lock()
+    clock = kw.pop("clock", None)
+    if sink is None:
+        sink = (aggregator_sink(agg, lock) if clock is None
+                else aggregator_sink(agg, lock, clock=clock))
+    reg = instrument.new_registry()
+    srv = serve_ingest_background(sink, instrument=reg.scope(""), aggregator=agg, **kw)
+    return srv, lock, reg
+
+
+def tier_client(placement, ports: dict, **kw):
+    from m3_tpu_torch.client.aggregator_client import AggregatorClient
+
+    return AggregatorClient(placement, lambda iid: ("127.0.0.1", ports[iid]), **kw)
+
+
+def one_instance(srv, iid: str = "agg-0", **kw):
+    from m3_tpu_torch.cluster.placement import Instance, initial_placement
+
+    placement = initial_placement([Instance(iid, endpoint=f"127.0.0.1:{srv.port}")],
+                                  TIER_SHARDS, 1)
+    return tier_client(placement, {iid: srv.port}, **kw)
+
+
+def send_scrapes(client, traffic, scrapes, keep=None, routing=None, shift: int = 0) -> int:
+    """Each scrape's samples of a type, ``TIER_FRAME`` at a time:
+    ``write_batch``, then a flush that returns once every owner
+    acknowledged its frame."""
+    sent = 0
+    for k in scrapes:
+        for mts, ids, vals, ts in traffic.frames(k, keep, shift):
+            for lo in range(0, len(ids), TIER_FRAME):
+                hi = lo + TIER_FRAME
+                t0 = time.perf_counter()
+                reached = client.write_batch(mts[lo:hi], ids[lo:hi], vals[lo:hi], ts[lo:hi])
+                if routing is not None:
+                    routing[0] += time.perf_counter() - t0
+                n = client.flush()
+                assert n == reached, (n, reached)
+                sent += n
+    return sent
+
+
+def wait_ingested(reg, n: int, timeout: float = 300.0) -> None:
+    deadline = time.monotonic() + timeout
+    while reg.snapshot().get("ingest_tcp.samples", 0) < n:
+        assert time.monotonic() < deadline, reg.snapshot()
+        time.sleep(0.01)
+
+
+def stop(*servers) -> None:
+    for s in servers:
+        s.shutdown()
+        s.server_close()
+
+
+def row_collector(rows: list, who=None):
+    """A flush handler keeping (id, time, metric type, aggregation type,
+    value bits[, who]) of each flushed row."""
+    def handler(ml, fm):
+        id_of = ml.maps[fm.metric_type].id_of
+        n = len(fm.slots)
+        cols = [[id_of(s) for s in fm.slots.tolist()], [fm.timestamp_nanos] * n,
+                [int(fm.metric_type)] * n, fm.types.tolist(),
+                np.asarray(fm.values, np.float64).view(np.int64).tolist()]
+        if who is not None:
+            cols.append([who] * n)
+        rows.extend(zip(*cols))
+    return handler
+
+
+class BusTail:
+    """The flush's far side: a BusServer topic ``aggregated_metrics``
+    with a SHARED ``coordinator`` service; ``publish`` (a flush handler)
+    sends each flushed batch as a PASSTHROUGH_BATCH payload through a
+    RemoteBusProducer, and a consumer thread polls, decodes and acks
+    through a RemoteBusConsumer as messages arrive (a redelivered id is
+    counted, acked again and kept once).  ``drain`` waits until every
+    message published so far has arrived."""
+
+    def __init__(self, agg):
+        import threading
+
+        from m3_tpu_torch.msg.bus import ConsumerService, ConsumptionType, MessageBus, Topic
+        from m3_tpu_torch.msg.transport import (RemoteBusConsumer, RemoteBusProducer,
+                                                serve_bus_background)
+
+        self.policy = str(agg.opts.storage_policies[0])
+        self.shard_of = {id(ml): sh.shard_id for sh in agg.shards for ml in sh.lists.values()}
+        self.bus = MessageBus(Topic("aggregated_metrics", TIER_SHARDS, (
+            ConsumerService("coordinator", ConsumptionType.SHARED),)))
+        self.srv = serve_bus_background(self.bus)
+        addr = ("127.0.0.1", self.srv.port)
+        self.producer = RemoteBusProducer(addr)
+        self.consumer = RemoteBusConsumer(addr, "coordinator", "coord-0")
+        self.published = 0
+        self.redelivered = 0
+        self.got: dict = {}  # message id -> (ids, times, values)
+        self.taken: set = set()
+        self.errors: list = []
+        self.s = {"encode": 0.0, "publish": 0.0, "poll": 0.0, "decode": 0.0, "ack": 0.0}
+        self._cv = threading.Condition()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._consume, daemon=True)
+        self._thread.start()
+
+    def publish(self, ml, fm) -> None:
+        from m3_tpu_torch.metrics.aggregation import AggregationID
+        from m3_tpu_torch.msg import protocol as wire
+
+        # each type flushes its default aggregation only
+        assert (fm.types == int(AggregationID.DEFAULT.types_for(fm.metric_type)[0])).all()
+        t0 = time.perf_counter()
+        id_of = ml.maps[fm.metric_type].id_of
+        payload = wire.encode_passthrough_batch(
+            self.policy, [id_of(s) for s in fm.slots.tolist()],
+            np.asarray(fm.values, np.float64),
+            np.full(len(fm.slots), fm.timestamp_nanos, np.int64))
+        t1 = time.perf_counter()
+        self.producer.publish(self.shard_of[id(ml)], payload)
+        self.s["encode"] += t1 - t0
+        self.s["publish"] += time.perf_counter() - t1
+        with self._cv:
+            self.published += 1
+
+    def _consume(self) -> None:
+        from m3_tpu_torch.msg import protocol as wire
+
+        try:
+            while not self._stop.is_set():
+                t0 = time.perf_counter()
+                msgs = self.consumer.poll(timeout_s=0.2, max_messages=256)
+                if msgs:  # a poll that waits for the next flush is idle time
+                    self.s["poll"] += time.perf_counter() - t0
+                for mid, _, payload in msgs:
+                    t0 = time.perf_counter()
+                    policy, i, v, t = wire.decode_passthrough_batch(payload)
+                    t1 = time.perf_counter()
+                    self.consumer.ack(mid)
+                    self.s["decode"] += t1 - t0
+                    self.s["ack"] += time.perf_counter() - t1
+                    assert policy == self.policy
+                    with self._cv:
+                        if mid in self.got:
+                            self.redelivered += 1
+                        else:
+                            self.got[mid] = (i, t, v)
+                        self._cv.notify_all()
+        except BaseException as e:  # noqa: BLE001 — raised by drain
+            self.errors.append(e)
+            with self._cv:
+                self._cv.notify_all()
+
+    def drain(self):
+        """(ids, times, values) of every message published so far that
+        no earlier drain returned, once all of them arrived."""
+        with self._cv:
+            ok = self._cv.wait_for(lambda: self.errors or len(self.got) >= self.published,
+                                   timeout=300)
+            assert ok and not self.errors, (self.errors, len(self.got), self.published)
+            new = [m for m in self.got if m not in self.taken]
+            self.taken.update(new)
+            parts = [self.got[m] for m in new]
+        ids = [x for p in parts for x in p[0]]
+        return (ids, np.concatenate([p[1] for p in parts]),
+                np.concatenate([p[2] for p in parts]))
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(10)
+        self.producer.close()
+        self.consumer.close()
+        stop(self.srv)
+
+
+def tier_volume(ids, ts, vs, root, dev, timings=None) -> np.ndarray:
+    """One window's rows through the HOPS tail (``window_matrix``, then
+    ``encode_batch`` with kernel #1 on the card and ``DataFileSetWriter``)
+    into namespace ``1m:2d``, shard 0, at the window's 2 h block."""
+    from m3_tpu_torch.tools import hops
+
+    sids, tmat, vmat, counts = hops.window_matrix(ids, ts, vs)
+    bs = int(ts.min()) // BLOCK * BLOCK
+    fb = hops.write_volume(sids, tmat, vmat, counts, root, torch_device(dev),
+                           namespace="1m:2d", block_start=bs, block_size=BLOCK,
+                           timings=timings)
+    assert not fb.any(), "a one-point stream fell back"
+    return sids
+
+
+def torch_device(dev):
+    import torch
+
+    return torch.device(dev)
+
+
+def tier_check_volume(root, sids, want_t, want_v, dev) -> int:
+    """The volume decoded on the card (kernel #2): every series once, its
+    one point at the window's end with the flushed value's bits."""
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.persist.fs import DataFileSetReader
+
+    (sh, bs, v), = fileset_volumes(root, "1m:2d")
+    r = DataFileSetReader(root, "1m:2d", sh, bs, v)
+    got = list(r.read_all())
+    r.close()
+    assert [s for s, _ in got] == sids
+    d_ts, d_vals, counts, dfb = mt.decode_batch([seg for _, seg in got], 2, device=dev)
+    assert not dfb.any() and (counts == 1).all()
+    assert np.array_equal(d_ts[:, 0], want_t), "volume timestamps"
+    assert np.array_equal(d_vals[:, 0].view(np.int64), want_v.view(np.int64)), "volume values"
+    return len(got)
+
+
+def by_id(ids, ts, vs, sids):
+    """The rows' times and values in ``sids`` order (each id once)."""
+    pos = {i: r for r, i in enumerate(ids)}
+    idx = np.fromiter((pos[s] for s in sids), np.int64, len(sids))
+    assert len(pos) == len(ids)
+    return ts[idx], vs[idx]
+
+
+def tier_main(traffic, dev, card: str) -> tuple:
+    """Phase 19's main path at full width: an AggregatorClient routing
+    through a one-instance placement of 64 shards sends each scrape as
+    METRIC_BATCH frames to an IngestServer on localhost feeding the
+    aggregator on the card; a FlushManager ticking as leader on a flush
+    thread, under the sink's lock, publishes each closed window on the
+    bus; the consumer writes window 1 as a fileset volume (kernel #1)
+    and decodes it on the card (kernel #2)."""
+    import threading
+
+    import torch
+
+    from m3_tpu_torch.aggregator import engine as te
+    from m3_tpu_torch.aggregator.flush_mgr import FlushManager
+    from m3_tpu_torch.cluster.kv import KVStore
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.msg import protocol as wire
+    from m3_tpu_torch.parallel import decode_gather, encode_place
+    from m3_tpu_torch.server.ingest_tcp import aggregator_sink
+
+    torch.cuda.reset_peak_memory_stats()
+    agg = tier_aggregator(dev)
+    lock = threading.Lock()
+    base_sink = aggregator_sink(agg, lock)
+    enq_at: dict = {}
+    waits: list = []
+
+    def sink(batch, kind=wire.METRIC_BATCH):
+        waits.append(time.perf_counter() - enq_at.pop(id(batch)))
+        base_sink(batch, kind)
+
+    srv, _, reg = tier_server(agg, sink=sink)
+    enqueue = srv._try_enqueue
+
+    def stamped(conn, sock, ftype, batch, n, tctx=None):
+        enq_at[id(batch)] = time.perf_counter()
+        return enqueue(conn, sock, ftype, batch, n, tctx)
+
+    srv._try_enqueue = stamped
+    hc = HostClock()
+    hc.wrap(wire, "encode_metric_batch", "frame_encode")
+    hc.wrap(wire, "decode_metric_batch", "server_decode")
+    hc.wrap(srv, "sink", "sink_arena_and_rest")
+    hc.wrap(te.Aggregator, "_by_shard", "sink_shard_routing")
+    hc.wrap(te.MetricMap, "resolve", "sink_resolver")
+    client = one_instance(srv)
+    tail = BusTail(agg)
+    fmgr = FlushManager(agg, KVStore(), "agg-0", flush_handler=tail.publish)
+    tick_s = []
+
+    def tick(now):
+        with lock:  # the ingest worker is the other thread on these arenas
+            t0 = time.perf_counter()
+            assert fmgr.tick(now) == "leader"
+            torch.cuda.synchronize()
+            tick_s.append(time.perf_counter() - t0)
+
+    zero_launches()
+    routing = [0.0]
+    t0 = time.perf_counter()
+    sent = send_scrapes(client, traffic, TIER_SENT[:-1], routing=routing)
+    # window 1 flushes on the flush thread while the seventh scrape streams in
+    flusher = threading.Thread(target=tick, args=(T0_AGG + MINUTE,))
+    flusher.start()
+    sent += send_scrapes(client, traffic, TIER_SENT[-1:], routing=routing)
+    flusher.join(600)
+    assert not flusher.is_alive() and len(tick_s) == 1, "the window-1 tick failed"
+    torch.cuda.synchronize()  # the acked frames' device work, once, at the end
+    ingest_s = time.perf_counter() - t0
+    hc.restore()
+    acked = reg.snapshot()["ingest_tcp.samples"]
+    frames = len(waits)
+    t1 = time.perf_counter()
+    w1 = tail.drain()
+    drain1_s = time.perf_counter() - t1
+    tick(T0_AGG + 2 * MINUTE)
+    w2 = tail.drain()
+
+    # acked = sent = flushed: every sample in a flushed row equal to the oracle
+    q_sent = sum(q.sent for q in client.queues.values())
+    assert sent == q_sent == acked == traffic.n * len(TIER_SENT), (sent, q_sent, acked)
+    row_of = {sid: r for r, sid in enumerate(traffic.ids)}
+    oracle = {1: traffic.window_oracle(list(TIER_SENT[:-1])),
+              2: traffic.window_oracle(list(TIER_SENT[-1:]))}
+    for w, (ids, ts, vs) in ((1, w1), (2, w2)):
+        rows = np.fromiter((row_of[i] for i in ids), np.int64, len(ids))
+        assert len(ids) == traffic.n and np.unique(rows).size == traffic.n, \
+            (w, len(ids), np.unique(rows).size)
+        assert (ts == T0_AGG + w * MINUTE).all(), w
+        assert np.array_equal(vs.view(np.int64), oracle[w][rows].view(np.int64)), \
+            f"window {w} != the numpy oracle"
+    deadline = time.monotonic() + 30
+    while tail.bus.acked < tail.published and time.monotonic() < deadline:
+        time.sleep(0.01)  # the last acks are in flight
+    assert len(tail.got) == tail.published == tail.bus.published and tail.redelivered == 0, \
+        (len(tail.got), tail.published, tail.bus.published, tail.redelivered)
+    assert tail.bus.unacked("coordinator") == 0 and tail.bus.acked == tail.published
+    log(f"phase19 acked == sent == {acked:,} samples in {frames} frames; windows 1 and 2 "
+        f"({traffic.n:,} rows each) == the numpy oracle (counters SUM, gauges LAST, bit for "
+        f"bit); the bus delivered {tail.published} messages once each, 0 unacked")
+
+    # window 1 through the HOPS tail into a volume (kernel #1), decoded (kernel #2)
+    root = store_root("phase19")
+    vt: dict = {}
+    with KernelCheck(mt, "place_words", encode_place.place_words_plain) as pcheck:
+        sids = tier_volume(*w1, root, dev, timings=vt)
+    want_t, want_v = by_id(*w1, sids)
+    t1 = time.perf_counter()
+    with KernelCheck(mt, "extract_fields64_t", decode_gather.extract_fields64_t_plain) as dcheck:
+        n_vol = tier_check_volume(root, sids, want_t, want_v, dev)
+    check_s = time.perf_counter() - t1
+    launched = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    assert launched["place_words"] > 0 and launched["extract_fields64_t"] > 0, launched
+    log(f"phase19 window 1 volume: {n_vol:,} series decoded on the card == the flushed "
+        f"values; kernel #1 == plain in {pcheck.calls} calls, kernel #2 == plain in "
+        f"{dcheck.calls}; launches {launched}")
+
+    backoffs = sum(q.backoffs for q in client.queues.values())
+    dropped = sum(q.dropped for q in client.queues.values())
+    shed = reg.snapshot().get("ingest_tcp.shed_frames", 0)
+    assert backoffs == dropped == shed == 0, (backoffs, dropped, shed)
+
+    client.close()
+    tail.close()
+    stop(srv)
+    # one frame's sink under the profiler (on this thread, the server
+    # stopped): scrape 7's first TIER_FRAME counters again, decoded off
+    # their wire bytes, into the third window (never flushed; a retried
+    # trace ingests again)
+    (mts, ids, vals, ts), _ = traffic.frames(TIER_SCRAPES - 1, shift=2 * MINUTE)
+    batch = wire.decode_metric_batch(wire.encode_metric_batch(wire.MetricBatch(
+        mts[:TIER_FRAME], ids[:TIER_FRAME], vals[:TIER_FRAME], ts[:TIER_FRAME])))
+    prof = profiled(lambda: base_sink(batch))
+
+    frags, keys, w_out = pcheck.args
+    place = {"tier_ms": cuda_ms(lambda: pcheck.fn(frags, keys, w_out)),
+             "tier_plain_ms": cuda_ms(lambda: encode_place.place_words_plain(
+                 frags, keys, w_out)),
+             "tier_bound_ms": (frags.numel() * (8 + 4) + frags.shape[0] * w_out * 8)
+             / HBM_BYTES_PER_S * 1e3,
+             "tier_shape": [list(frags.shape), w_out], "tier_max_abs_err": pcheck.err}
+    ext = {f"tier_{k[4:]}": v for k, v in dcheck.summary().items()}
+    ext["tier_max_abs_err"] = dcheck.err
+    log(f"phase19 [{card}] kernel #1 at the flush's shapes ({place['tier_shape']}): "
+        f"{place['tier_ms']:.4f} ms, bound {place['tier_bound_ms']:.4f} ms (bytes), plain "
+        f"{place['tier_plain_ms']:.4f} ms; kernel #2 on the volume check: {ext['tier_ms']:.4f} "
+        f"ms, bound {ext['tier_bound_ms']:.4f} ms; peak device memory {peak / 2**30:.2f} GiB")
+    split = {k: v for k, v in hc.s.items()}
+    n = acked
+    t = {"series": traffic.n, "shards": TIER_SHARDS, "scrapes": len(TIER_SENT),
+         "samples": n, "frames": frames, "ingest_s": ingest_s,
+         "samples_per_s": n / ingest_s,
+         "split_client_routing_s": routing[0],
+         **{f"split_{k}_s": v for k, v in split.items()},
+         "split_queue_wait_s": sum(waits[:frames]), "queue_wait_max_s": max(waits[:frames]),
+         "acks": frames, "client_backoffs": backoffs, "client_dropped": dropped,
+         "server_shed_frames": shed,
+         "bus_redeliveries": tail.redelivered,
+         "profiled_frame_samples": len(batch.ids),
+         "profiled_frame_wall_ms": prof["wall_s"] * 1e3,
+         "profiled_frame_device_busy_ms": prof["busy_s"] * 1e3,
+         "profiled_frame_idle_share": 1 - prof["busy_s"] / prof["wall_s"],
+         "profiled_frame_device_ops": prof["ops"],
+         "tick_s_per_window": tick_s, "consume_ms_per_window": [x * 1e3 for x in tick_s],
+         "bus_messages": tail.published, "bus_drain_window1_s": drain1_s,
+         **{f"bus_{k}_s": v for k, v in tail.s.items()},
+         "volume_encode_s": vt["encode"], "volume_fileset_s": vt["fileset_write"],
+         "volume_check_s": check_s, "peak_mem_gib": peak / 2**30}
+    return t, {"w1": w1, "w2": w2}, launched, place, ext
+
+
+def tier_card_vs_cpu(traffic, card_rows, dev) -> dict:
+    """The first TIER_CHECK series (half of each type) of the same
+    traffic through an IngestServer in front of the aggregator on the
+    CPU: its flushed rows bit-equal to the card run's for those series,
+    and its window-1 volume (CPU encode) sha256-equal to one written
+    from the card's rows (kernel #1)."""
+    from m3_tpu_torch.aggregator.flush_mgr import FlushManager
+    from m3_tpu_torch.cluster.kv import KVStore
+    from m3_tpu_torch.tools import hops
+
+    keep = np.zeros(traffic.n, bool)
+    keep[:TIER_CHECK // 2] = True
+    keep[traffic.half:traffic.half + TIER_CHECK // 2] = True
+    agg = tier_aggregator("cpu")
+    srv, lock, reg = tier_server(agg)
+    client = one_instance(srv)
+    rows: list = []
+    fmgr = FlushManager(agg, KVStore(), "agg-cpu", flush_handler=row_collector(rows))
+    sent = send_scrapes(client, traffic, TIER_SENT, keep=keep)
+    for w in (1, 2):
+        with lock:
+            assert fmgr.tick(T0_AGG + w * MINUTE) == "leader"
+    client.close()
+    stop(srv)
+    assert sent == TIER_CHECK * len(TIER_SENT)
+    want = {traffic.ids[i] for i in np.nonzero(keep)[0].tolist()}
+    digests = []
+    for w, (ids, ts, vs) in ((1, card_rows["w1"]), (2, card_rows["w2"])):
+        card = sorted((i, t, v) for i, t, v in zip(ids, ts.tolist(),
+                                                   vs.view(np.int64).tolist()) if i in want)
+        cpu = sorted((r[0], r[1], r[4]) for r in rows if r[1] == T0_AGG + w * MINUTE)
+        assert card == cpu and len(cpu) == TIER_CHECK, f"window {w}: card != CPU"
+        if w == 1:
+            for d, rows_ in ((dev, card), ("cpu", cpu)):
+                i, t, v = zip(*rows_)
+                root = store_root(f"phase19-{torch_device(d).type}")
+                tier_volume(list(i), np.asarray(t, np.int64),
+                            np.asarray(v, np.int64).view(np.float64), root, d)
+                digests.append(hops.volume_digest(root))
+    assert digests[0] == digests[1], "card and CPU volumes differ"
+    return {"card_cpu_series": TIER_CHECK, "card_cpu_volume_sha256": digests[0]}
+
+
+def hops_on_card(dev, card: str) -> dict:
+    """(a) The pinned HOPS corpus (1,024 gauges x 320 s) through the
+    port's ``tools/hops`` on the card, kernel #1 held against its plain
+    version on every launch: the volume's sha256 is the one pinned from
+    the JAX package, in the cold pass and the steady one."""
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.parallel import encode_place
+    from m3_tpu_torch.tools import hops
+
+    with KernelCheck(mt, "place_words", encode_place.place_words_plain) as pcheck:
+        doc = hops.run_pipeline(root=str(store_root("phase19-hops")), device=dev)
+    assert doc["volume_sha256"] == doc["cold_volume_sha256"] == HOPS_PINNED_SHA256, doc
+    log(f"phase19 (a) HOPS corpus {doc['config']['S']} x {doc['config']['T']}: volume sha256 "
+        f"== the pinned JAX digest (cold and steady); kernel #1 == plain in {pcheck.calls} calls")
+    for h, v in doc["hops"].items():
+        log(f"phase19 (a) [{card}] {h}: cold {v['cold_wall_s']:.3f} s, steady "
+            f"{v['steady_wall_s']:.3f} s, share {v['host_time_fraction']:.4f}")
+    return {"hops": doc["hops"], "hops_pipeline": doc["pipeline"],
+            "hops_place_calls": pcheck.calls, "hops_place_max_abs_err": pcheck.err}
+
+
+def ha_pair(seed: int, dev, card: str) -> dict:
+    """(b) A mirrored placement of RF 2 (one shard set of two instances,
+    each an IngestServer with an aggregator on the card; one KV): the
+    client sends every sample to both.  The leader flushes window 1, the
+    follower shadow-consumes; the leader resigns in window 2 and the
+    follower takes over.  The union of the windows they emitted equals a
+    single instance's run: none lost, none doubled."""
+    import torch
+
+    from m3_tpu_torch.aggregator.flush_mgr import FlushManager
+    from m3_tpu_torch.cluster.kv import KVStore
+    from m3_tpu_torch.cluster.placement import Instance
+    from m3_tpu_torch.cluster.placement_mirrored import (mirrored_initial_placement,
+                                                         validate_mirrored)
+    from m3_tpu_torch.metrics.types import MetricType as MT
+
+    traffic = TierTraffic(seed + 19, HA_SERIES, K=HA_SCRAPES, step=30 * SEC,
+                          counters_only=True, prefix=b"ha")
+    kv = KVStore()
+    nodes, ports, rows = {}, {}, []
+    for k, iid in enumerate(("agg-a", "agg-b")):
+        agg = tier_aggregator(dev, shards=HA_SHARDS)
+        srv, lock, reg = tier_server(agg)
+        nodes[iid] = (srv, lock, reg, FlushManager(agg, kv, iid,
+                                                   flush_handler=row_collector(rows, iid)))
+        ports[iid] = srv.port
+    placement = mirrored_initial_placement(
+        [Instance(iid, f"g{k}", shard_set_id=1, endpoint=f"127.0.0.1:{ports[iid]}")
+         for k, iid in enumerate(ports)], HA_SHARDS, 2)
+    validate_mirrored(placement)
+    client = tier_client(placement, ports)
+    roles = []
+
+    def tick(order, now):
+        for iid in order:
+            _, lock, _, fm = nodes[iid]
+            with lock:
+                roles.append((iid, fm.tick(now)))
+
+    t0 = time.perf_counter()
+    send_scrapes(client, traffic, [0, 1])
+    tick(("agg-a", "agg-b"), T0_AGG + MINUTE)
+    send_scrapes(client, traffic, [2])
+    nodes["agg-a"][3].resign()  # mid-stream: the follower takes the lease
+    tick(("agg-b", "agg-a"), T0_AGG + MINUTE + 30 * SEC)
+    send_scrapes(client, traffic, [3])
+    tick(("agg-b", "agg-a"), T0_AGG + 2 * MINUTE)
+    send_scrapes(client, traffic, [4, 5])
+    tick(("agg-b", "agg-a"), T0_AGG + 3 * MINUTE)
+    torch.cuda.synchronize()
+    pair_s = time.perf_counter() - t0
+    client.close()
+    for srv, _, reg, _ in nodes.values():
+        assert reg.snapshot()["ingest_tcp.samples"] == HA_SERIES * HA_SCRAPES
+        stop(srv)
+    assert roles == [("agg-a", "leader"), ("agg-b", "follower"), ("agg-b", "leader"),
+                     ("agg-a", "follower"), ("agg-b", "leader"), ("agg-a", "follower"),
+                     ("agg-b", "leader"), ("agg-a", "follower")], roles
+
+    single = tier_aggregator(dev, shards=HA_SHARDS)
+    srows: list = []
+    sfm = FlushManager(single, KVStore(), "solo", flush_handler=row_collector(srows))
+    for k in range(HA_SCRAPES):
+        (mts, ids, vals, ts), = traffic.frames(k)
+        single.add_untimed_batch(MT.COUNTER, ids, vals, ts)
+        if k % 2 == 1:
+            assert sfm.tick(T0_AGG + (k // 2 + 1) * MINUTE) == "leader"
+    emitted = {}
+    for r in rows:
+        emitted.setdefault(r[1], set()).add(r[5])
+    union = sorted(r[:5] for r in rows)
+    assert union == sorted(srows), "the pair's union != a single instance's run"
+    assert len(set(union)) == len(union) == HA_SERIES * 3, "a window lost or doubled"
+    assert emitted == {T0_AGG + MINUTE: {"agg-a"}, T0_AGG + 2 * MINUTE: {"agg-b"},
+                       T0_AGG + 3 * MINUTE: {"agg-b"}}, emitted
+    want = np.concatenate([traffic.window_oracle([2 * w, 2 * w + 1]) for w in range(3)])
+    got = {(r[0], r[1]): r[4] for r in rows}
+    idx = {i: j for j, i in enumerate(traffic.ids)}
+    assert all(got[(i, T0_AGG + (w + 1) * MINUTE)] ==
+               np.float64(want[w * HA_SERIES + idx[i]]).view(np.int64)
+               for w in range(3) for i in traffic.ids[::97]), "HA sums != oracle"
+    log(f"phase19 (b) HA pair, RF 2 mirrored over {HA_SHARDS} shards, {HA_SERIES:,} counters "
+        f"x {HA_SCRAPES} scrapes to both: windows emitted {sorted((t - T0_AGG) // MINUTE for t in emitted)} "
+        f"by {[sorted(v) for _, v in sorted(emitted.items())]}; the union == a single "
+        f"instance's {len(srows):,} rows, none lost or doubled ({pair_s:.1f} s)")
+    return {"ha_series": HA_SERIES, "ha_scrapes": HA_SCRAPES, "ha_rows": len(union),
+            "ha_s": pair_s}
+
+
+def overload_and_kinds(seed: int, dev, card: str) -> dict:
+    """(c) max_queue_frames=2 with six clients sending at once: frames
+    over the budget get INGEST_BACKOFF, the clients park and retry, and
+    every acknowledged sample is in the flush.  Then TIMED_BATCH (on an
+    injected server clock), PASSTHROUGH_BATCH and FORWARDED_BATCH frames
+    of KINDS_SAMPLES each through a server on the card and one on the
+    CPU: flushed rows and passthrough batches bit-equal."""
+    import socket
+    import threading
+
+    import torch
+
+    from m3_tpu_torch.aggregator import engine as te
+    from m3_tpu_torch.metrics.aggregation import AggregationID, AggregationType as AT
+    from m3_tpu_torch.metrics.policy import StoragePolicy
+    from m3_tpu_torch.msg import protocol as wire
+
+    agg = tier_aggregator(dev, shards=SMALL_SHARDS)
+    srv, lock, reg = tier_server(agg, max_queue_frames=2)
+    rng = np.random.default_rng(seed + 23)
+    vals = rng.integers(0, 100, (OVERLOAD_CLIENTS, OVERLOAD_FRAMES, OVERLOAD_BATCH)) * 1.0
+    clients, errors = [], []
+
+    def run(c):
+        try:
+            cl = one_instance(srv)
+            clients.append(cl)
+            ids = [b"ovl.%d.%05d" % (c, i) for i in range(OVERLOAD_BATCH)]
+            for f in range(OVERLOAD_FRAMES):
+                cl.write_batch(np.ones(OVERLOAD_BATCH, np.uint8), ids, vals[c, f],
+                               np.full(OVERLOAD_BATCH, T0_AGG + (f * 7 + c) * SEC, np.int64))
+                deadline = time.monotonic() + 120
+                while cl.flush() == 0:  # parked on a BACKOFF: retry after its hint
+                    assert time.monotonic() < deadline
+                    time.sleep(0.002)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(c,)) for c in range(OVERLOAD_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    assert not errors and not any(th.is_alive() for th in threads), errors
+    over_s = time.perf_counter() - t0
+    rows: list = []
+    with lock:
+        agg.consume(T0_AGG + MINUTE, row_collector(rows))
+    total = OVERLOAD_CLIENTS * OVERLOAD_FRAMES * OVERLOAD_BATCH
+    snap = reg.snapshot()
+    backoffs = sum(q.backoffs for cl in clients for q in cl.queues.values())
+    sent = sum(q.sent for cl in clients for q in cl.queues.values())
+    for cl in clients:
+        cl.close()
+    stop(srv)
+    assert sent == snap["ingest_tcp.samples"] == total, (sent, snap)
+    assert backoffs > 0 and snap["ingest_tcp.shed_frames"] == backoffs, (backoffs, snap)
+    want = {b"ovl.%d.%05d" % (c, i): vals[c, :, i].sum()
+            for c in range(OVERLOAD_CLIENTS) for i in range(OVERLOAD_BATCH)}
+    got = {r[0]: np.int64(r[4]).view(np.float64) for r in rows}
+    assert got == want, "an acknowledged sample is missing from the flush"
+    log(f"phase19 (c) overload, max_queue_frames=2, {OVERLOAD_CLIENTS} clients x "
+        f"{OVERLOAD_FRAMES} frames of {OVERLOAD_BATCH:,}: {backoffs} BACKOFFs (server shed "
+        f"{snap['ingest_tcp.shed_frames']}), every client parked and retried; acked == "
+        f"sent == {total:,} and every series' flushed SUM == the oracle ({over_s:.1f} s)")
+
+    # the other three frame kinds, card against CPU
+    n = KINDS_SAMPLES
+    ids = [b"kind.%s.%05d" % (b"c" if i % 2 == 0 else b"g", i) for i in range(n)]
+    mts = np.where(np.arange(n) % 2 == 0, 1, 3).astype(np.uint8)
+    kv_ = np.round(rng.normal(20, 5, n), 2)
+    kt = T0_AGG + rng.integers(0, 60, n) * SEC
+    kt[::97] = T0_AGG - 3600 * SEC  # too early for the server's clock
+    sum_id = AggregationID.compress([AT.SUM])
+    entries = [(te.ForwardSpec(b"fwd.stage2.%03d" % (i % 100), sum_id, ()), float(i % 13),
+                int(T0_AGG + (i % 50) * SEC)) for i in range(n)]
+    pt_policy = StoragePolicy.parse("1m:40d")
+    out = []
+    for d in (dev, "cpu"):
+        batches = []
+        kagg = tier_aggregator(d, shards=SMALL_SHARDS, passthrough_handler=batches.append)
+        ksrv, klock, kreg = tier_server(kagg, clock=lambda: T0_AGG + 30 * SEC)
+        cl = one_instance(ksrv)
+        assert cl.write_timed_batch(mts, ids, kv_, kt) == n and cl.flush() == n
+        assert cl.write_passthrough(ids, kv_, kt, pt_policy) == 1
+        s = wire.connect(("127.0.0.1", ksrv.port))
+        wire.send_frame(s, wire.FORWARDED_BATCH,
+                        wire.encode_forwarded_batch(str(kagg.opts.storage_policies[0]), entries))
+        wait_ingested(kreg, 3 * n)
+        s.close()
+        krows: list = []
+        with klock:
+            kagg.consume(T0_AGG + 2 * MINUTE, row_collector(krows))
+        if torch_device(d).type == "cuda":
+            torch.cuda.synchronize()
+        out.append((sorted(krows), [(str(b.policy), b.ids, b.values.view(np.int64).tolist(),
+                                     b.times.tolist()) for b in batches], kagg.counters()))
+        cl.close()
+        stop(ksrv)
+    a, b = out
+    assert a == b, "timed / passthrough / forwarded: card != CPU"
+    rows_k, pts, counters = a
+    assert counters["timed_rejects_too_early"] == len(kt[::97]) and len(pts) == 1
+    assert len(pts[0][1]) == n and {r[0] for r in rows_k} >= {b"fwd.stage2.000"}
+    log(f"phase19 (c) TIMED_BATCH, PASSTHROUGH_BATCH and FORWARDED_BATCH frames of {n:,} "
+        f"each, card == CPU: {len(rows_k):,} flushed rows bit for bit, the passthrough batch, "
+        f"{counters['timed_rejects_too_early']} timed samples refused as too early on both")
+    return {"overload_backoffs": backoffs, "overload_samples": total, "overload_s": over_s,
+            "kinds_rows": len(rows_k)}
+
+
+def aggregator_tier_phase(seed: int, dev, card: str) -> tuple:
+    """Phase 19: see the module docstring.  Returns (times, launches on
+    the main path, kernel #1's record there, kernel #2's)."""
+    import torch
+
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    traffic = TierTraffic(seed, TIER_SERIES)
+    log(f"phase19 data: {TIER_SERIES:,} series ({traffic.half:,} counters, "
+        f"{TIER_SERIES - traffic.half:,} gauges) x scrapes {list(TIER_SENT)} of "
+        f"{TIER_SCRAPES} at 10 s from a minute boundary = "
+        f"{TIER_SERIES * len(TIER_SENT):,} samples in frames of at most {TIER_FRAME:,}; "
+        f"{TIER_SHARDS} shards, {TIER_CAPACITY} slots a type a shard, {TIER_POLICY}; "
+        f"generated in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    t, rows, launched, place, ext = tier_main(traffic, dev, card)
+    t["main_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    t.update(tier_card_vs_cpu(traffic, rows, dev))
+    t["card_cpu_s"] = time.perf_counter() - t0
+    log(f"phase19 card == CPU on the first {TIER_CHECK:,} series: flushed rows bit for bit, "
+        f"window-1 volumes sha256-equal ({t['card_cpu_s']:.1f} s)")
+    del rows
+    torch.cuda.empty_cache()
+    t.update(hops_on_card(dev, card))
+    t.update(ha_pair(seed, dev, card))
+    t.update(overload_and_kinds(seed, dev, card))
+    t["phase_s"] = time.perf_counter() - t_all
+    log(f"phase19 [{card}] aggregator tier: " + json.dumps(t))
+    return t, launched, place, ext
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3935,6 +4790,20 @@ def main() -> int:
         if k["name"] == "place_words":  # also held at the node flush's shapes
             k["max_abs_err"] = max(k["max_abs_err"], place_node.pop("node_max_abs_err"))
             k.update(place_node)
+    torch.cuda.empty_cache()
+
+    # ---- phase 19: the aggregator tier ----
+    t0 = time.perf_counter()
+    tier_t, tier_launched, place_tier, ext_tier = aggregator_tier_phase(args.seed, dev, card)
+    log(f"phase19 done in {time.perf_counter() - t0:.1f} s")
+    for k in kernels:
+        k["tier_launches"] = tier_launched[k["name"]]
+        rec = {"place_words": place_tier, "extract_fields64_t": ext_tier}.get(k["name"])
+        if rec is not None:  # also held at the aggregator tier's shapes
+            k["max_abs_err"] = max(k["max_abs_err"], rec.pop("tier_max_abs_err"))
+            k.update(rec)
+        if k["name"] == "place_words":  # and in the HOPS pipeline, every launch
+            k["max_abs_err"] = max(k["max_abs_err"], tier_t["hops_place_max_abs_err"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -38,7 +38,7 @@ import numpy as np
 
 from m3_tpu_torch import resolve_device
 from m3_tpu_torch.aggregator.arena import make_arenas
-from m3_tpu_torch.core.hash import shard_for
+from m3_tpu_torch.core.hash import shard_for, shards_for
 from m3_tpu_torch.metrics.aggregation import AggregationID, AggregationType
 from m3_tpu_torch.metrics.policy import StoragePolicy
 from m3_tpu_torch.metrics.transformation import TransformationType
@@ -996,10 +996,15 @@ class Aggregator:
         return self.shards[self.shard_index(mid)]
 
     def _by_shard(self, ids) -> Dict[int, List[int]]:
-        by_shard: Dict[int, List[int]] = {}
-        for i, mid in enumerate(ids):
-            by_shard.setdefault(self.shard_index(mid), []).append(i)
-        return by_shard
+        """Each shard's sample indices in order, shards in the order of
+        their first sample (the reference's per-sample loop's dict)."""
+        shards = shards_for(ids, len(self.shards))
+        order = np.argsort(shards, kind="stable")
+        uniq, first, counts = np.unique(shards, return_index=True, return_counts=True)
+        ends = np.cumsum(counts)
+        groups = {s: order[e - c:e].tolist() for s, e, c in
+                  zip(uniq.tolist(), ends.tolist(), counts.tolist())}
+        return {s: groups[s] for s in uniq[np.argsort(first)].tolist()}
 
     def add_untimed_batch(self, mt, ids, values, times, agg_id=AggregationID.DEFAULT):
         if len(self.shards) == 1:

@@ -1,5 +1,6 @@
 """MurmurHash3 (32-bit, x86 variant) — the framework's shard router hash
-(the port's copy of ``m3_tpu/core/hash.py``).
+(the port's copy of ``m3_tpu/core/hash.py``, with ``shards_for``: the
+same hash over a whole batch of ids at once).
 
 Reference parity: `src/dbnode/sharding/shardset.go:148-163` computes
 `shard = murmur3.Sum32(id) % numShards`, and the aggregator's shard fn
@@ -12,6 +13,8 @@ expects for that series ID).
 from __future__ import annotations
 
 import functools
+
+import numpy as np
 
 _C1 = 0xCC9E2D51
 _C2 = 0x1B873593
@@ -60,3 +63,60 @@ def shard_for(series_id: bytes, num_shards: int) -> int:
     the cache makes repeat routing a C-speed dict hit.
     """
     return murmur3_32(series_id) % num_shards
+
+
+def _rotl(x: np.ndarray, r: int) -> np.ndarray:
+    return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+
+
+def murmur3_32_many(ids, seed: int = 0) -> np.ndarray:
+    """``murmur3_32`` of each id, as a uint32 array: ids of one length
+    hash together, each step on a column of 32-bit words (numpy's
+    uint32 arithmetic wraps as the scalar version's ``& 0xFFFFFFFF``)."""
+    n = len(ids)
+    out = np.empty(n, np.uint32)
+    if n == 0:
+        return out
+    lens = np.fromiter(map(len, ids), np.int64, n)
+    c1, c2 = np.uint32(_C1), np.uint32(_C2)
+    uniq = np.unique(lens).tolist()
+    with np.errstate(over="ignore"):
+        for L in uniq:
+            if len(uniq) == 1:
+                sel, group = slice(None), ids
+            else:
+                sel = np.nonzero(lens == L)[0]
+                group = [ids[i] for i in sel.tolist()]
+            m = len(group)
+            a = np.frombuffer(b"".join(group), np.uint8).reshape(m, L)
+            nb = L // 4
+            h = np.full(m, seed & _M, np.uint32)
+            if nb:
+                blocks = np.ascontiguousarray(a[:, :4 * nb]).view("<u4")
+                for j in range(nb):
+                    k = blocks[:, j] * c1
+                    k = _rotl(k, 15) * c2
+                    h ^= k
+                    h = _rotl(h, 13) * np.uint32(5) + np.uint32(0xE6546B64)
+            t = L & 3
+            if t:
+                k = np.zeros(m, np.uint32)
+                if t >= 3:
+                    k ^= a[:, 4 * nb + 2].astype(np.uint32) << np.uint32(16)
+                if t >= 2:
+                    k ^= a[:, 4 * nb + 1].astype(np.uint32) << np.uint32(8)
+                k ^= a[:, 4 * nb].astype(np.uint32)
+                h ^= _rotl(k * c1, 15) * c2
+            h ^= np.uint32(L & _M)
+            h ^= h >> np.uint32(16)
+            h *= np.uint32(0x85EBCA6B)
+            h ^= h >> np.uint32(13)
+            h *= np.uint32(0xC2B2AE35)
+            h ^= h >> np.uint32(16)
+            out[sel] = h
+    return out
+
+
+def shards_for(ids, num_shards: int) -> np.ndarray:
+    """``shard_for`` of each id, as an int64 array."""
+    return (murmur3_32_many(ids) % np.uint32(num_shards)).astype(np.int64)

@@ -1,13 +1,17 @@
 """Tracing: spans named from a tracepoint registry, with a bound trace
-context.  The counterpart of ``m3_tpu/instrument/tracing.py``, copied
-without its wire form and the debug endpoint's trace assembly (the port
-has neither), so that a caller's ``Tracer`` works with the port's engine
-as it does with the reference's.
+context and its 17-byte wire form.  The counterpart of
+``m3_tpu/instrument/tracing.py``, so that a caller's ``Tracer`` works
+with the port's engine as it does with the reference's, and a sampled
+aggregator client stitches the ingest server's batch span into its
+trace (the ``INGEST_TRACE`` preamble of ``msg/protocol.py``).
 
 * ``bind(ctx)`` installs a parent :class:`TraceContext` for the current
   thread of execution (``contextvars``); ``current()`` reads it.
   Entering a recorded span binds its own context too.  New threads never
   inherit the binding.
+* Wire clients read ``current_wire()`` and send it ahead of a frame;
+  servers decode it with ``TraceContext.from_wire`` and ``bind`` it
+  around dispatch.
 * Sampling rides the context: root spans sample via the tracer's
   ``sample_rate``; a bound context's decision always wins.
 
@@ -21,6 +25,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import random
+import struct
 import threading
 import time
 from collections import deque
@@ -53,6 +58,9 @@ class Tracepoint:
 # -- cross-process context ---------------------------------------------------
 
 
+_WIRE = struct.Struct("<QQB")  # trace_id, parent span_id, flags
+
+
 @dataclass(frozen=True)
 class TraceContext:
     """What crosses a process boundary: which trace, which parent span,
@@ -61,6 +69,18 @@ class TraceContext:
     trace_id: int
     span_id: int
     sampled: bool = True
+
+    WIRE_SIZE = _WIRE.size  # 17 bytes
+
+    def to_wire(self) -> bytes:
+        return _WIRE.pack(self.trace_id & (2**64 - 1),
+                          self.span_id & (2**64 - 1),
+                          1 if self.sampled else 0)
+
+    @classmethod
+    def from_wire(cls, raw: bytes, pos: int = 0) -> "TraceContext":
+        tid, sid, flags = _WIRE.unpack_from(raw, pos)
+        return cls(tid, sid, bool(flags & 1))
 
 
 _current: contextvars.ContextVar[TraceContext | None] = contextvars.ContextVar(
@@ -81,6 +101,16 @@ def bind(ctx: TraceContext | None):
         yield ctx
     finally:
         _current.reset(token)
+
+
+def current_wire(default: bytes = b"") -> bytes:
+    """Wire form of the bound context for frame preambles; ``default``
+    (empty = no trace) when none is bound or the bound trace is
+    unsampled — unsampled requests cost nothing downstream."""
+    ctx = _current.get()
+    if ctx is None or not ctx.sampled:
+        return default
+    return ctx.to_wire()
 
 
 @dataclass
@@ -124,7 +154,8 @@ class _ActiveSpan:
 
     def __enter__(self) -> "_ActiveSpan":
         # the active span is the current trace context: in-process
-        # children parent on it via the tracer stack
+        # children parent on it via the tracer stack, wire clients
+        # serialize it via current_wire()
         self._token = _current.set(self.span.context)
         return self
 

@@ -1,6 +1,8 @@
 """Process-global fault-injection registry: named faultpoints at the
-disk and read boundaries (``commitlog.flush``, ``fs.*``, ``query.fetch``)
-armed with one of four modes:
+disk, read and wire boundaries (``commitlog.flush``, ``fs.*``,
+``query.fetch``, and the aggregator tier's ``ingest_tcp.frame`` between
+a frame's receipt and its decode and ``ingest_tcp.send`` before a
+client's frame goes out) armed with one of four modes:
 
 * ``drop``    — the operation is lost (the SITE decides what a drop
   means; the commitlog flush site skips the fsync).

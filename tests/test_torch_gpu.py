@@ -760,3 +760,207 @@ def test_node_on_card_equals_node_on_cpu(tmp_path):
     assert answers["cpu"] == answers[str(dev)]
     assert json.loads(answers["cpu"][0])["data"]["result"]
     assert digests["cpu"] == digests[str(dev)] and any("fileset" in k for k in digests["cpu"])
+
+
+def _tier_rows(d, frames, timed, passthrough, forwarded, clock):
+    """One aggregator on ``d`` behind an IngestServer, fed by an
+    AggregatorClient (METRIC_BATCH and TIMED_BATCH frames, passthrough)
+    and a raw FORWARDED_BATCH frame: its flushed rows (value bits) and
+    passthrough batches."""
+    import socket
+    import time
+
+    from m3_tpu_torch import instrument
+    from m3_tpu_torch.client.aggregator_client import AggregatorClient
+    from m3_tpu_torch.cluster.placement import Instance, initial_placement
+    from m3_tpu_torch.msg import protocol as wire
+    from m3_tpu_torch.server.ingest_tcp import aggregator_sink, serve_ingest_background
+
+    got_pt = []
+    agg = te.Aggregator(num_shards=8, opts=te.AggregatorOptions(
+        capacity=1 << 12, num_windows=2, timer_sample_capacity=1 << 14,
+        storage_policies=(StoragePolicy.parse("1m:48h"),)),
+        passthrough_handler=got_pt.append, device=d)
+    reg = instrument.new_registry()
+    srv = serve_ingest_background(aggregator_sink(agg, clock=clock), instrument=reg.scope(""))
+    try:
+        client = AggregatorClient(initial_placement([Instance("i0")], 64, 1),
+                                  lambda _: ("127.0.0.1", srv.port))
+        n = 0
+        for f in frames:
+            n += client.write_batch(*f)
+            client.flush()
+        n += client.write_timed_batch(*timed)
+        client.flush()
+        client.write_passthrough(*passthrough)
+        n += len(passthrough[0])
+        s = socket.create_connection(("127.0.0.1", srv.port))
+        wire.send_frame(s, wire.FORWARDED_BATCH, wire.encode_forwarded_batch("1m:48h", forwarded))
+        n += len(forwarded)
+        deadline = time.monotonic() + 300
+        while reg.snapshot().get("ingest_tcp.samples", 0) < n:
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        s.close()
+        client.close()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    rows = []
+
+    def handler(ml, f):
+        m = ml.maps[f.metric_type]
+        rows.extend((m.id_of(int(s_)), f.timestamp_nanos, int(f.metric_type), int(a),
+                     np.float64(v).view(np.int64).item())
+                    for s_, a, v in zip(f.slots.tolist(), f.types.tolist(), f.values.tolist()))
+
+    agg.consume(START + 10 * 60 * SEC, handler)
+    return sorted(rows), [(str(b.policy), b.ids, b.values.view(np.int64).tolist(),
+                           b.times.tolist()) for b in got_pt], agg.counters()
+
+
+@pytest.mark.gpu
+def test_ingest_server_on_card_equals_cpu():
+    """The aggregator tier's front door on the card and on the CPU: the
+    same METRIC_BATCH frames (counters, gauges, timers over two
+    windows), a TIMED_BATCH frame on an injected server clock (some
+    samples too early), a passthrough batch and a FORWARDED_BATCH frame
+    give bit-equal flushed rows, passthrough batches and counters."""
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(5)
+    t0 = START // (60 * SEC) * 60 * SEC
+    n = 3000
+    ids = [b"tier.%d.%05d" % (i % 3, i) for i in range(n)]
+    mts = np.array([1, 3, 2], np.uint8)[np.arange(n) % 3]
+    frames = []
+    for k in range(9):
+        p = rng.permutation(n)
+        frames.append((mts[p], [ids[i] for i in p], np.round(rng.gamma(2, 30, n), 3)[p],
+                       (t0 + k * 10 * SEC + rng.integers(0, 10, n) * SEC)[p]))
+    tt = t0 + rng.integers(0, 120, n) * SEC
+    tt[::50] = t0 - 3600 * SEC
+    timed = (mts, ids, np.round(rng.normal(0, 9, n), 2), tt)
+    passthrough = (ids[:500], rng.normal(size=500), np.full(500, t0, np.int64),
+                   StoragePolicy.parse("1m:40d"))
+    sum_id = AggregationID.compress([AggregationType.SUM])
+    forwarded = [(te.ForwardSpec(b"fwd.%02d" % (i % 40), sum_id, ()), float(i % 7),
+                  int(t0 + (i % 90) * SEC)) for i in range(2000)]
+    clock = lambda: t0 + 30 * SEC  # noqa: E731
+    card = _tier_rows(dev, frames, timed, passthrough, forwarded, clock)
+    cpu = _tier_rows("cpu", frames, timed, passthrough, forwarded, clock)
+    assert card == cpu
+    rows, pts, counters = card
+    assert len(rows) > n and len(pts) == 1 and counters["timed_rejects_too_early"] == n // 50
+
+
+@pytest.mark.gpu
+def test_threaded_ingest_and_ticks_on_card_equal_serial():
+    """Four clients stream three windows into an IngestServer in front
+    of the aggregator on the card while a FlushManager ticks each
+    window under the sink's lock as soon as every client's frames for it
+    are acknowledged: the flushed rows equal a serial run's on the card
+    and on the CPU (the worker, the handlers and the flush thread all
+    launch on the default stream)."""
+    import threading
+
+    from m3_tpu_torch import instrument
+    from m3_tpu_torch.aggregator.flush_mgr import FlushManager
+    from m3_tpu_torch.client.aggregator_client import AggregatorClient
+    from m3_tpu_torch.cluster.kv import KVStore
+    from m3_tpu_torch.cluster.placement import Instance, initial_placement
+    from m3_tpu_torch.server.ingest_tcp import aggregator_sink, serve_ingest_background
+
+    dev = _cuda_or_skip()
+    W = 10 * SEC
+    t0 = START // W * W
+    n_clients, n_windows, per = 4, 3, 400
+
+    def frames(c, w):
+        rng = np.random.default_rng(100 * c + w)
+        ids = [b"cc%d.s%d" % (c, i) for i in range(per)]
+        return [(np.full(per, 1 + (c % 2) * 2, np.uint8), ids,
+                 np.round(rng.normal(10, 3, per), 2),
+                 np.full(per, t0 + 1 + k + w * W, np.int64)) for k in range(2)]
+
+    def node(d):
+        agg = te.Aggregator(num_shards=4, opts=te.AggregatorOptions(
+            capacity=1 << 12, num_windows=4, timer_sample_capacity=1 << 10,
+            storage_policies=(StoragePolicy.parse("10s:2d"),)), device=d)
+        rows = []
+
+        def on_flush(ml, f):
+            m = ml.maps[f.metric_type]
+            rows.extend((m.id_of(s), f.timestamp_nanos, int(a),
+                         np.float64(v).view(np.int64).item()) for s, a, v in
+                        zip(f.slots.tolist(), f.types.tolist(), f.values.tolist()))
+
+        return agg, FlushManager(agg, KVStore(), "i0", flush_handler=on_flush), rows
+
+    agg, fm, rows_conc = node(dev)
+    lock = threading.Lock()
+    reg = instrument.new_registry()
+    srv = serve_ingest_background(aggregator_sink(agg, lock), instrument=reg.scope(""))
+    placement = initial_placement([Instance("i0")], 4, 1)
+    done = [0] * n_windows
+    cv = threading.Condition()
+    errors = []
+
+    def run_client(c):
+        try:
+            cl = AggregatorClient(placement, lambda _: ("127.0.0.1", srv.port))
+            for w in range(n_windows):
+                for f in frames(c, w):
+                    cl.write_batch(*f)
+                    assert cl.flush() == per
+                with cv:
+                    done[w] += 1
+                    cv.notify_all()
+            cl.close()
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    def ticker():
+        try:
+            for w in range(n_windows):
+                with cv:
+                    assert cv.wait_for(lambda: done[w] == n_clients, timeout=300)
+                with lock:
+                    assert fm.tick(t0 + (w + 1) * W) == "leader"
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run_client, args=(c,)) for c in range(n_clients)]
+    threads.append(threading.Thread(target=ticker))
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        assert not any(t.is_alive() for t in threads) and not errors, errors
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    key = lambda r: (r[1], r)  # noqa: E731 — window, then the row
+    for d in (dev, "cpu"):
+        ser, sfm, rows_ser = node(d)
+        for w in range(n_windows):
+            for c in range(n_clients):
+                for mts, ids, vals, ts in frames(c, w):
+                    ser.add_untimed_batch(MetricType(int(mts[0])), ids, vals, ts)
+            assert sfm.tick(t0 + (w + 1) * W) == "leader"
+        assert sorted(rows_conc, key=key) == sorted(rows_ser, key=key)
+    assert len(rows_conc) == n_windows * n_clients * per
+
+
+@pytest.mark.gpu
+def test_hops_pipeline_on_card_writes_cpu_bytes(tmp_path):
+    """The HOPS pipeline (m3_tpu_torch.tools.hops) on a reduced corpus:
+    the card's volume (kernel #1 in its encode) equals the CPU's, sha256."""
+    from m3_tpu_torch.tools import hops
+
+    dev = _cuda_or_skip()
+    before = ep.launches
+    card = hops.run_pipeline(96, 60, root=str(tmp_path / "card"), device=dev)
+    assert ep.launches > before
+    cpu = hops.run_pipeline(96, 60, root=str(tmp_path / "cpu"), device="cpu")
+    assert card["volume_sha256"] == cpu["volume_sha256"] == card["cold_volume_sha256"]

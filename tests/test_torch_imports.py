@@ -25,7 +25,11 @@ def test_every_module_imports_with_jax_blocked():
               "x.admission", "x.breaker", "x.diskbudget", "x.retry",
               "storage.mediator", "storage.scrub", "server.snappy",
               "server.prom_remote", "server.influx", "server.http_api",
-              "server.assembly", "server.node_main"):
+              "server.assembly", "server.node_main",
+              # the aggregator tier: wire, ingest, client, placements, bus
+              "msg.protocol", "msg.bus", "msg.transport", "server.ingest_tcp",
+              "client.aggregator_client", "cluster.placement",
+              "cluster.placement_mirrored", "collector.reporter", "tools.hops"):
         assert f"m3_tpu_torch.{m}" in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
