@@ -245,6 +245,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    window, bus and volume seconds, kernel #1's time at the flush's
    shapes, each HOPS hop's wall and share, peak memory.
 
+20. the device mesh on the card as a repeated device list (one process;
+   each mesh device's program runs on it in turn; collectives reduce in
+   shard order): (a) the sharded aggregator step at BASELINE config #3's
+   width, 10^6 series routed by murmur3 to 8 shards of 2^17 slots, three
+   samples a series (two in window 0, one in window 1), each a counter,
+   a gauge and a timer value at one slot, on the packed layout and then
+   the f64 one (kernels #3 and #4, each launch held bit for bit against
+   its plain version on CPU copies): every shard's lanes equal to a
+   one-device arena run on its samples, the cross-shard rollup to a
+   numpy oracle added in shard order, ``err`` 0, window 1's samples
+   left; the first 2^14 series card against CPU, every lane and state
+   tensor bit for bit; over distinct cards where the machine has two or
+   more (else logged as not run); (b) a 4 x 2 mesh at 2^16 series:
+   ``replica_divergence`` all False, one flipped bit in one replica
+   turns exactly that shard's two ring edges True, ``quorum_ack`` equal
+   to numpy; (c) the sharded codec at config #2's width over two shards
+   (S = 100,000, T cut to 240): words, ``total_bits`` and fallback equal
+   to the one-device encode, the finalized streams' decode equal to the
+   one-device decode on every output (kernels #1 and #2 held against
+   their plain versions on every launch), the pinned batch over three
+   shards hashing to the pinned digest, ``chains="fused"`` equal to
+   ``"gather"`` on 2^12 streams; (d) ``sharded_decode_rate_hq`` at
+   config #5 over four shards against ``single_device_reference``
+   (rates rtol 1e-14, hq rtol 1e-12, errs exactly) and card against CPU
+   on 128 streams a shard, bit for bit.  Each part's wall, launches and
+   peak memory.
+
 Each kernel record carries ``launches`` (phase 3's pass or phase 7's
 drive), ``query_launches`` (phase 13), ``storage_launches`` (phase
 14's write, flush, read and restart: kernel #1 once per shard per warm
@@ -253,7 +280,9 @@ check: kernel #2), ``downsample_launches`` (phases 16-17; each must
 be above 0), ``node_launches`` (phase 18's node: kernel #1 in the
 flush) and ``node_check_launches`` (its volume check: kernel #2), and
 ``tier_launches`` (phase 19's main path: kernel #1 in the volume's
-encode, kernel #2 in its check).  The last three lines are a JSON line of kernel records, the card's name
+encode, kernel #2 in its check), and ``mesh_launches`` (phase 20's
+main paths: kernels #3 and #4 in (a)'s f64 step, #1 in (c)'s encode,
+#2 in (c)'s decode and (d)'s query).  The last three lines are a JSON line of kernel records, the card's name
 and power limit, and the result line ``{"ok": true, "device": {...}}``.
 Exact comparisons throughout, except where a phase names its tolerance.
 """
@@ -1849,7 +1878,9 @@ def many_buckets_check(w_d, nb_d, rates, steps, P: int, dev) -> dict:
     card and once on the CPU; rates, bucket sums (kernel #3 adding each
     (bucket, step) lane's rates in series order) and hq bit-equal.  Then
     the bucket sum's time at the path's width (the phase's rates, 66
-    buckets) beside the masked form at 64 buckets and ``index_add_``."""
+    buckets) beside the masked form at 64 buckets (pairwise folds), the
+    same masked form reduced by ``sum`` (whose order differs between the
+    card and the CPU) and ``index_add_``."""
     import torch
 
     from m3_tpu_torch.parallel import sharded_query as sq
@@ -1873,11 +1904,14 @@ def many_buckets_check(w_d, nb_d, rates, steps, P: int, dev) -> dict:
     t = {"b66_series": n, "b66_card_vs_cpu_bit_equal_runs": 2,
          "b66_bucket_sum_ms": cuda_ms(lambda: sq._bucket_sum(rates, bid_full, B)),
          "b64_masked_sum_ms": cuda_ms(lambda: sq._bucket_sum(rates, bid_full % 64, 64)),
+         "b64_torch_sum_ms": cuda_ms(lambda: torch.stack([
+             torch.where((bid_full % 64 == b)[:, None], r0, 0.0).sum(dim=0) for b in range(64)])),
          "b66_index_add_ms": cuda_ms(lambda: out.zero_().index_add_(0, bid_full.long(), r0)),
          "b66_bucket_sum_shape": list(rates.shape)}
     log(f"phase13 B=66: rates, bucket sums and hq bit-equal card (twice) vs CPU on {n} "
         f"streams; bucket sum at {list(rates.shape)}: kernel #3 {t['b66_bucket_sum_ms']:.3f} ms, "
-        f"masked sum at 64 buckets {t['b64_masked_sum_ms']:.3f} ms, index_add_ "
+        f"masked sum at 64 buckets {t['b64_masked_sum_ms']:.3f} ms (by torch.sum "
+        f"{t['b64_torch_sum_ms']:.3f} ms), index_add_ "
         f"{t['b66_index_add_ms']:.3f} ms")
     return t
 
@@ -4459,6 +4493,513 @@ def aggregator_tier_phase(seed: int, dev, card: str) -> tuple:
     return t, launched, place, ext
 
 
+# ---- phase 20: the device mesh (parallel/mesh.py and the sharded paths) ----
+
+MESH_SERIES = 1_000_000  # BASELINE config #3's width: a counter and a gauge a series
+MESH_SHARDS = 8
+MESH_CAPACITY = 1 << 17  # slots a shard: 125,000 series a shard plus murmur3's skew
+MESH_SAMPLE_CAPACITY = 1 << 18  # timer samples a window a shard (two a series in window 0)
+MESH_CHECK = 1 << 14  # the first series, card against CPU
+MESH_CARDS_SERIES = 1 << 16  # over distinct cards, where the machine has them
+MESH_REPLICA_SERIES = 1 << 16
+MESH_REPLICA_CAPACITY = 1 << 15
+MESH_CODEC_SHARDS = 2
+MESH_CODEC_POINTS = 240  # of config #2's 720 (PERF.md §4): each shard pays phase 1's steps
+MESH_FUSED_CHECK = 1 << 12  # streams decoded by both chains tails
+MESH_QUERY_SHARDS = 4
+MESH_QUERY_CHECK = 1 << 9  # streams of the query's card-against-CPU pair
+MESH_QUANTILES = (0.5, 0.95, 0.99)
+MESH_OFFSETS = (10, 20, 70)  # seconds after T0_AGG: two samples in window 0, one in window 1
+
+
+class MeshTraffic:
+    """n series ``mesh.NNNNNNN`` routed to ``shards`` by the port's murmur3
+    (``core/hash.shards_for``), each series' slot its rank in its shard;
+    three samples a series (window 0 twice, window 1 once), each with a
+    counter value (integers in [0, 1000)), a gauge value (three decimals,
+    0.1 % NaN) and a timer value at the same slot."""
+
+    def __init__(self, seed: int, n: int, shards: int):
+        from m3_tpu_torch.core.hash import shards_for
+
+        rng = np.random.default_rng(seed)
+        self.n, self.shards = n, shards
+        self.shard = shards_for([b"mesh.%07d" % i for i in range(n)], shards)
+        counts = np.bincount(self.shard, minlength=shards)
+        order = np.argsort(self.shard, kind="stable")
+        self.slot = np.empty(n, np.int64)
+        self.slot[order] = np.arange(n) - np.repeat(np.cumsum(counts) - counts, counts)
+        K = len(MESH_OFFSETS)
+        self.windows = np.array([(o * SEC) // MINUTE for o in MESH_OFFSETS], np.int32)
+        self.times = (T0_AGG + np.array(MESH_OFFSETS, np.int64)[:, None] * SEC
+                      + rng.integers(0, 10, (K, n)) * SEC // 10)
+        self.cvals = rng.integers(0, 1000, (K, n)).astype(np.int64)
+        g = np.round(rng.normal(50, 20, (K, n)), 3) + 0.0
+        g[rng.random(g.shape) < 0.001] = np.nan
+        self.gvals = g
+        self.tvals = np.abs(rng.normal(0.1, 0.02, (K, n)))
+
+    def rows(self, d: int, keep=None):
+        """Shard d's samples, series in slot order, scrape by scrape:
+        (windows, slots, counter, gauge, timer values, times)."""
+        sel = self.shard == d
+        if keep is not None:
+            sel &= keep
+        idx = np.flatnonzero(sel)
+        idx = idx[np.argsort(self.slot[idx], kind="stable")]
+        K = len(MESH_OFFSETS)
+        return (np.repeat(self.windows, len(idx)), np.tile(self.slot[idx], K).astype(np.int32),
+                self.cvals[:, idx].reshape(-1), self.gvals[:, idx].reshape(-1),
+                self.tvals[:, idx].reshape(-1), self.times[:, idx].reshape(-1))
+
+    def batch(self, capacity: int, keep=None):
+        """The (D, N) ``ShardedBatch``: every shard's rows, padded with rows
+        outside the ring and the slots (dropped)."""
+        from m3_tpu_torch.parallel.sharded_agg import ShardedBatch
+
+        per = [self.rows(d, keep) for d in range(self.shards)]
+        N = max(len(r[0]) for r in per)
+        fills = (len(MESH_OFFSETS), capacity, 0, 0.0, 0.0, 0)
+        cols = []
+        for k, fill in enumerate(fills):
+            col = np.full((self.shards, N), fill, dtype=per[0][k].dtype)
+            for d, r in enumerate(per):
+                col[d, :len(r[k])] = r[k]
+            cols.append(col)
+        return ShardedBatch(*cols)
+
+    def rollup_oracle(self, capacity: int) -> np.ndarray:
+        """Window 0's cross-shard rollup from the samples in numpy, the
+        shards added in order: [sum, count, min, max] a slot (min and max
+        over the gauges' real values, NaN where no shard has one)."""
+        w0 = [k for k, w in enumerate(self.windows) if w == 0]
+        acc = None
+        for d in range(self.shards):
+            idx = np.flatnonzero(self.shard == d)
+            slot = self.slot[idx]
+            part = np.zeros((capacity, 4))
+            part[:, 2], part[:, 3] = np.inf, -np.inf
+            g = self.gvals[w0][:, idx]
+            gsum = np.zeros(len(idx))
+            for k in range(len(w0)):  # the arenas' order: arrival
+                gsum = gsum + np.where(np.isnan(g[k]), 0.0, g[k])
+            csum = self.cvals[w0][:, idx].sum(axis=0).astype(np.float64)
+            part[slot, 0] = gsum + csum
+            part[slot, 1] = 2.0 * len(w0)
+            part[slot, 2] = np.fmin.reduce(np.where(np.isnan(g), np.inf, g), axis=0)
+            part[slot, 3] = np.fmax.reduce(np.where(np.isnan(g), -np.inf, g), axis=0)
+            if acc is None:
+                acc = part
+            else:
+                acc[:, :2] = acc[:, :2] + part[:, :2]
+                acc[:, 2] = np.minimum(acc[:, 2], part[:, 2])
+                acc[:, 3] = np.maximum(acc[:, 3], part[:, 3])
+        acc[:, 2] = np.where(np.isposinf(acc[:, 2]), np.nan, acc[:, 2])
+        acc[:, 3] = np.where(np.isneginf(acc[:, 3]), np.nan, acc[:, 3])
+        return acc
+
+
+def mesh_step(devices, shards: int, replicas: int, batch, capacity: int, scap: int,
+              layout: str):
+    """One sharded step on a fresh state (window 0 drained): (state, lanes)."""
+    from m3_tpu_torch.parallel import mesh, sharded_agg as sa
+
+    topo = mesh.make_mesh(shards, replicas, devices)
+    state = sa.sharded_init(topo, 2, capacity, scap, layout=layout)
+    return sa.sharded_ingest_consume(topo, state, batch, 0, 2, capacity, MESH_QUANTILES,
+                                     layout=layout)
+
+
+def mesh_outputs(state, lanes) -> list:
+    """Every lane, count, the rollup, ``err`` and every state tensor of
+    every shard (replica 0), on the CPU, in a fixed order."""
+    out = [lanes[k][i] for k in ("counter", "gauge", "timer") for i in (0, 1)]
+    out += [lanes["rollup"], lanes["err"]]
+    out += [t for field in state for row in field for t in row[0]]
+    return [t.cpu() for t in out]
+
+
+def mesh_same(a: list, b: list, what: str) -> None:
+    assert len(a) == len(b)
+    for k, (x, y) in enumerate(zip(a, b)):
+        assert x.dtype == y.dtype and x.shape == y.shape and same_bits(x, y), f"{what}: output {k}"
+
+
+def mesh_sharded_step(seed: int, dev, card: str) -> tuple:
+    """Phase 20 (a): the sharded step at config #3's width on 8 shards of
+    the card (a repeated device list), packed then f64.  Returns (times,
+    launches on the f64 run, kernels #3 and #4's largest bit difference)."""
+    import torch
+
+    from m3_tpu_torch.aggregator import arena
+    from m3_tpu_torch.parallel import segment_ingest as si
+
+    t_part = time.perf_counter()
+    t0 = time.perf_counter()
+    tr = MeshTraffic(seed, MESH_SERIES, MESH_SHARDS)
+    batch = tr.batch(MESH_CAPACITY)
+    batch_d = type(batch)(*(torch.from_numpy(a).to(dev) for a in batch))
+    counts = np.bincount(tr.shard, minlength=MESH_SHARDS)
+    t = {"series": MESH_SERIES, "shards": MESH_SHARDS, "samples": int(3 * MESH_SERIES),
+         "rows_per_shard": int(batch.windows.shape[1]), "series_per_shard_max": int(counts.max()),
+         "series_per_shard_min": int(counts.min()), "data_s": time.perf_counter() - t0}
+    log(f"phase20 (a) data: {MESH_SERIES:,} series x 3 samples (counter, gauge and timer "
+        f"lanes) on {MESH_SHARDS} shards by murmur3 ({counts.min():,}-{counts.max():,} a "
+        f"shard), {MESH_CAPACITY} slots a shard; {t['data_s']:.1f} s")
+    assert counts.max() <= MESH_CAPACITY
+    want_rollup = torch.from_numpy(tr.rollup_oracle(MESH_CAPACITY))
+    devices = [dev] * MESH_SHARDS
+    launches, err = {}, 0.0
+    warm = MeshTraffic(seed + 9, 256, MESH_SHARDS)
+    for layout in ("packed", "f64"):
+        mesh_step(devices, MESH_SHARDS, 1, warm.batch(64), 64, 1 << 10, layout)
+        torch.cuda.synchronize()  # warm-up: lazy inits of this layout's ops
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        if layout == "f64":
+            with IntoCheck("segment_ingest_into", si.segment_ingest_into_plain) as c3, \
+                    IntoCheck("segment_minmax_into", si.segment_minmax_into_plain) as c4:
+                state, lanes = mesh_step(devices, MESH_SHARDS, 1, batch_d, MESH_CAPACITY,
+                                         MESH_SAMPLE_CAPACITY, layout)
+                torch.cuda.synchronize()
+            assert c3.calls > 0 and c4.calls > 0
+            err = max(c3.err, c4.err)
+        else:
+            state, lanes = mesh_step(devices, MESH_SHARDS, 1, batch_d, MESH_CAPACITY,
+                                     MESH_SAMPLE_CAPACITY, layout)
+            torch.cuda.synchronize()
+        got = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        if layout == "f64":
+            launches = got
+            assert got["segment_ingest"] > 0 and got["segment_minmax"] > 0, got
+            log(f"phase20 (a) f64: kernels #3 and #4 bit-equal to their plain versions on "
+                f"every launch ({c3.calls} and {c4.calls} calls); launches {got}")
+        else:
+            assert not any(got.values()), got
+        del state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()  # the timed step: fresh state, no checks
+        state, lanes = mesh_step(devices, MESH_SHARDS, 1, batch_d, MESH_CAPACITY,
+                                 MESH_SAMPLE_CAPACITY, layout)
+        torch.cuda.synchronize()
+        t[f"{layout}_step_s"] = time.perf_counter() - t0
+        t[f"{layout}_peak_gib"] = peak / 2**30
+
+        # each shard against a one-device arena run on its own samples
+        t0 = time.perf_counter()
+        for d in range(MESH_SHARDS):
+            rows = tr.rows(d)
+            arenas = arena.make_arenas(2, MESH_CAPACITY, MESH_SAMPLE_CAPACITY, MESH_QUANTILES,
+                                       layout=layout, device=dev)
+            for a, kind, vals in zip(arenas, ("counter", "gauge", "timer"), rows[2:5]):
+                a.ingest(rows[0], rows[1], vals, rows[5])
+                want, cnt = a.consume(0)
+                assert same_bits(lanes[kind][0][d], want), f"{layout} {kind} shard {d}"
+                assert torch.equal(lanes[kind][1][d], cnt), f"{layout} {kind} count shard {d}"
+        t[f"{layout}_oracle_s"] = time.perf_counter() - t0
+        assert same_bits(lanes["rollup"].cpu(), want_rollup), f"{layout} rollup"
+        assert not bool(lanes["err"].any()), lanes["err"]
+        left = sum(int(st.count.sum()) if layout == "f64" else
+                   int(arena_counts(st)) for st in (row[0] for row in state.counters))
+        assert left == MESH_SERIES, left  # window 1's sample of every series
+        log(f"phase20 (a) {layout}: every shard's counter, gauge and timer lanes == a "
+            f"one-device arena run on its samples, bit for bit; the rollup == the numpy "
+            f"oracle summed in shard order; err 0; {left:,} window-1 samples left; step "
+            f"{t[f'{layout}_step_s']:.2f} s, peak {peak / 2**30:.2f} GiB")
+        del state, lanes
+        torch.cuda.empty_cache()
+
+    # card against CPU on the first series, both layouts
+    t0 = time.perf_counter()
+    keep = np.arange(tr.n) < MESH_CHECK
+    small = tr.batch(MESH_CAPACITY, keep)
+    for layout in ("packed", "f64"):
+        card_out = mesh_outputs(*mesh_step(devices, MESH_SHARDS, 1, small, MESH_CAPACITY,
+                                           1 << 12, layout))
+        cpu_out = mesh_outputs(*mesh_step(["cpu"] * MESH_SHARDS, MESH_SHARDS, 1, small,
+                                          MESH_CAPACITY, 1 << 12, layout))
+        mesh_same(card_out, cpu_out, f"(a) {layout} card vs CPU")
+    t["card_cpu_s"] = time.perf_counter() - t0
+    log(f"phase20 (a) card == CPU on the first {MESH_CHECK:,} series, both layouts: every "
+        f"lane, the rollup, err and every state tensor bit for bit ({t['card_cpu_s']:.1f} s)")
+
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        keep = np.arange(tr.n) < MESH_CARDS_SERIES
+        part = tr.batch(MESH_CAPACITY, keep)
+        spread = [torch.device(f"cuda:{d % n_cards}") for d in range(MESH_SHARDS)]
+        two = mesh_outputs(*mesh_step(spread, MESH_SHARDS, 1, part, MESH_CAPACITY, 1 << 14,
+                                      "f64"))
+        one = mesh_outputs(*mesh_step(devices, MESH_SHARDS, 1, part, MESH_CAPACITY, 1 << 14,
+                                      "f64"))
+        mesh_same(two, one, "(a) distinct cards vs one card")
+        t["distinct_cards"] = n_cards
+        log(f"phase20 (a) {MESH_CARDS_SERIES:,} series over {n_cards} distinct cards == the "
+            f"same on one card, bit for bit (f64)")
+    else:
+        t["distinct_cards"] = 1
+        log("phase20 (a) over distinct cards: did not run (this machine has one card)")
+    t["part_s"] = time.perf_counter() - t_part
+    return t, launches, err
+
+
+def arena_counts(st) -> int:
+    """Samples held in a packed counter state's base words."""
+    from m3_tpu_torch.aggregator import packed
+
+    cnt, _ = packed._unpack_base(st.base, packed.DEFAULT_WIDTHS)
+    return int(cnt.sum())
+
+
+def mesh_replicas(seed: int, dev, card: str) -> dict:
+    """Phase 20 (b): a 4 x 2 mesh of the card, 2^16 series on the packed
+    layout: the replicas agree; one bit flipped in one replica's counter
+    state shows as exactly that shard's two ring edges; ``quorum_ack`` on a
+    random ack matrix equals numpy."""
+    import torch
+
+    from m3_tpu_torch.parallel import mesh, replication
+
+    t0 = time.perf_counter()
+    tr = MeshTraffic(seed + 1, MESH_REPLICA_SERIES, 4)
+    topo = mesh.make_mesh(4, 2, [dev] * 8)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    state, lanes = mesh_step([dev] * 8, 4, 2, tr.batch(MESH_REPLICA_CAPACITY),
+                             MESH_REPLICA_CAPACITY, 1 << 16, "packed")
+    div = replication.replica_divergence(topo, state)
+    torch.cuda.synchronize()
+    launched = read_launches()
+    assert not any(launched.values()), launched
+    assert div.shape == (4, 2) and not bool(div.any()), div
+    assert not bool(lanes["err"].any())
+    state.counters[1][1].base[17] ^= 1 << 20  # shard 1, replica 1: one bit of a count
+    div = replication.replica_divergence(topo, state).cpu().numpy()
+    want = np.zeros((4, 2), bool)
+    want[1] = True  # two replicas: the flipped one's edge and its successor's
+    assert np.array_equal(div, want), div
+    rng = np.random.default_rng(seed + 2)
+    acks = rng.integers(0, 2, (4, 2)).astype(np.int32)
+    for required in (1, 2, 3):
+        ok, got = replication.quorum_ack(topo, acks, required)
+        assert np.array_equal(got.cpu().numpy(), acks.sum(axis=1))
+        assert np.array_equal(ok.cpu().numpy(), acks.sum(axis=1) >= required)
+    t = {"replica_series": MESH_REPLICA_SERIES, "replica_wall_s": time.perf_counter() - t0,
+         "replica_peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"phase20 (b) 4 x 2 mesh, {MESH_REPLICA_SERIES:,} series: replica_divergence all "
+        f"False; one flipped bit in shard 1's replica 1 turns exactly shard 1's two edges "
+        f"True; quorum_ack == numpy for required 1, 2, 3 ({t['replica_wall_s']:.1f} s)")
+    return t
+
+
+def mesh_codec(seed: int, S: int, T: int, dev, card: str) -> tuple:
+    """Phase 20 (c): the sharded codec at config #2 over two shards of the
+    card against the one-device codec; the pinned batch over three; the
+    fused chains tail against the gather tail.  Returns (times, launches,
+    kernel #1's and #2's largest bit difference)."""
+    import torch
+
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.core.xtime import Unit
+    from m3_tpu_torch.parallel import decode_gather, encode_place
+    from m3_tpu_torch.parallel.sharded_decode import decode_batch_device_sharded
+    from m3_tpu_torch.parallel.sharded_encode import encode_batch_device_sharded
+
+    t_part = time.perf_counter()
+    ts, vals, starts = make_batch(seed, S, T)
+    valid = np.ones((S, T), bool)
+    vb = vals.view(np.int64)
+    W = max(16, T * 40 // 64 + 8)  # phase 3's width
+    devices = [dev] * MESH_CODEC_SHARDS
+    t = {"codec_series": S, "codec_points": T, "codec_shards": MESH_CODEC_SHARDS}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = mt.encode_batch_device(ts, vb, starts, valid, out_words=W, device=dev)
+    torch.cuda.synchronize()
+    t["encode_one_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    with KernelCheck(mt, "place_words", encode_place.place_words_plain) as c1:
+        enc = encode_batch_device_sharded(ts, vb, starts, valid, out_words=W, devices=devices)
+        torch.cuda.synchronize()
+    t["encode_sharded_s"] = time.perf_counter() - t0
+    enc_launches = read_launches()
+    for k in ("words", "total_bits", "fallback"):
+        assert torch.equal(enc[k], one[k]), f"sharded encode {k}"
+    assert c1.calls == MESH_CODEC_SHARDS and enc_launches["place_words"] == c1.calls
+    log(f"phase20 (c) encode {S:,} x {T} over {MESH_CODEC_SHARDS} shards: words, total_bits "
+        f"and fallback == the one-device encode; kernel #1 bit-equal to plain on each of "
+        f"{c1.calls} launches; {t['encode_sharded_s']:.2f} s against {t['encode_one_s']:.2f} s "
+        f"for one device ({t['encode_sharded_s'] / t['encode_one_s']:.2f}x)")
+    del enc
+    # the streams as storage holds them (the EOS tail appended), the
+    # fallback series left out
+    fb = one["fallback"].cpu().numpy()
+    ok = ~fb
+    assert fb.mean() < 0.05, fb.mean()
+    t0 = time.perf_counter()
+    streams = mt.finalize_streams(one["words"].cpu().numpy()[ok],
+                                  one["total_bits"].cpu().numpy()[ok])
+    words, nbits = (torch.from_numpy(a).to(dev) for a in mt.pack_streams(streams))
+    words = words.view(torch.int64)
+    t["finalize_pack_s"] = time.perf_counter() - t0
+    del streams, one
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec_one = mt.decode_batch_device(words, nbits, T + 1, device=dev)
+    torch.cuda.synchronize()
+    t["decode_one_s"] = time.perf_counter() - t0
+    zero_launches()
+    t0 = time.perf_counter()
+    with KernelCheck(mt, "extract_fields64_t", decode_gather.extract_fields64_t_plain) as c2:
+        dec = decode_batch_device_sharded(words, nbits, T + 1, devices=devices)
+        torch.cuda.synchronize()
+    t["decode_sharded_s"] = time.perf_counter() - t0
+    dec_launches = read_launches()
+    t["codec_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    assert all(torch.equal(a, b) for a, b in zip(dec, dec_one)), "sharded decode"
+    assert c2.calls == MESH_CODEC_SHARDS and dec_launches["extract_fields64_t"] == c2.calls
+    assert not bool(dec[3].any()), "decode flagged encoded series"
+    assert np.array_equal(dec[0][:, :T].cpu().numpy(), ts[ok]), "timestamps did not round-trip"
+    log(f"phase20 (c) decode over {MESH_CODEC_SHARDS} shards == the one-device decode on "
+        f"every output, timestamps round-trip on {int(ok.sum()):,} series; kernel #2 "
+        f"bit-equal to plain on each of {c2.calls} launches; {t['decode_sharded_s']:.2f} s "
+        f"against {t['decode_one_s']:.2f} s")
+    del dec, dec_one
+
+    pts, pvals, pstarts = pinned_batch()
+    pin = encode_batch_device_sharded(pts, pvals.view(np.int64), pstarts,
+                                      np.ones(pts.shape, bool), unit=int(Unit.SECOND),
+                                      out_words=200, devices=[dev] * 3)
+    assert not bool(pin["fallback"].any())
+    pw, pn = mt.pack_streams(mt.finalize_streams(pin["words"].cpu().numpy(),
+                                                 pin["total_bits"].cpu().numpy()))
+    h = hashlib.sha256()
+    h.update(np.ascontiguousarray(pw).tobytes())
+    h.update(np.ascontiguousarray(pn).tobytes())
+    assert h.hexdigest() == PINNED_ENCODE_DIGEST, h.hexdigest()
+    log("phase20 (c) the pinned batch over 3 shards: the pinned encode digest")
+
+    n = MESH_FUSED_CHECK
+    t0 = time.perf_counter()
+    fused = mt.decode_batch_device(words[:n], nbits[:n], T + 1, device=dev, chains="fused")
+    torch.cuda.synchronize()
+    t["fused_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gather = mt.decode_batch_device(words[:n], nbits[:n], T + 1, device=dev, chains="gather")
+    torch.cuda.synchronize()
+    t["gather_s"] = time.perf_counter() - t0
+    assert all(torch.equal(a, b) for a, b in zip(fused, gather)), "fused != gather"
+    log(f"phase20 (c) chains='fused' == 'gather' on every output of the first {n:,} "
+        f"streams ({t['fused_s']:.2f} s against {t['gather_s']:.2f} s)")
+    t["codec_part_s"] = time.perf_counter() - t_part
+    launches = {k: enc_launches[k] + dec_launches[k] for k in enc_launches}
+    return t, launches, c1.err, c2.err
+
+
+def mesh_query(seed: int, G: int, B: int, dev, card: str) -> tuple:
+    """Phase 20 (d): ``sharded_decode_rate_hq`` at config #5 over four
+    shards of the card against ``single_device_reference`` (rates rtol
+    1e-14, hq rtol 1e-12, errs exactly), and card against CPU on a slice,
+    bit for bit.  Returns (times, launches, kernel #2's largest bit
+    difference)."""
+    import torch
+
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.parallel import decode_gather, mesh
+    from m3_tpu_torch.parallel import sharded_query as sq
+
+    t_part = time.perf_counter()
+    ts, vals, ub_labels = promql_corpus(seed, G, B)
+    S, P = ts.shape
+    t0 = time.perf_counter()
+    streams, fb = mt.encode_batch(ts, vals, ts[:, 0].copy(), out_words=P * 80 // 64 + 8,
+                                  device=dev)
+    enc_s = time.perf_counter() - t0
+    D = MESH_QUERY_SHARDS
+    keep = np.flatnonzero(~fb)
+    keep = keep[:len(keep) // D * D]
+    words, nbits = mt.pack_streams([streams[i] for i in keep])
+    del streams
+    words = words.view(np.int64).reshape(D, len(keep) // D, -1)
+    nbits = nbits.reshape(D, -1)
+    bid = (keep % B).astype(np.int32).reshape(D, -1)
+    ubs = np.array([np.inf if u == b"+Inf" else float(u) for u in ub_labels])
+    q_start = PROMQL_START + RATE_WIN
+    steps = np.arange(q_start, q_start + PROMQL_RANGE + 1, PROMQL_STEP, dtype=np.int64)
+    args = (RATE_WIN, 0.99, P + 1, B)
+    topo = mesh.make_mesh(D, 1, [dev] * D)
+    w_d = torch.from_numpy(words).to(dev)
+    nb_d = torch.from_numpy(nbits).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    with KernelCheck(mt, "extract_fields64_t", decode_gather.extract_fields64_t_plain) as c2:
+        rates, hq, errs = sq.sharded_decode_rate_hq(topo, w_d, nb_d, bid, steps, ubs, *args)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    assert c2.calls == D and launches["extract_fields64_t"] == D, launches
+    t0 = time.perf_counter()
+    r_ref, hq_ref, e_ref = sq.single_device_reference(w_d, nb_d, bid, steps, ubs, *args,
+                                                      device=dev)
+    ref_s = time.perf_counter() - t0
+    r, h, e = rates.cpu().numpy(), hq.cpu().numpy(), errs.cpu().numpy()
+    assert np.array_equal(e, e_ref) and not e.any()
+    rates_exact = same_bits(rates.cpu(), torch.from_numpy(r_ref))
+    np.testing.assert_allclose(r, r_ref, rtol=1e-14)
+    np.testing.assert_allclose(h, hq_ref, rtol=1e-12)
+    assert np.isfinite(h).all()
+    hq_err = rel_err(h, hq_ref)
+    log(f"phase20 (d) config #5 ({len(keep):,} streams x {P} samples, encoded in {enc_s:.1f} "
+        f"s) over {D} shards: rates {'bit-equal to' if rates_exact else 'within rtol 1e-14 of'} "
+        f"single_device_reference, hq within rtol 1e-12 (largest {hq_err:.3e}), errs equal; "
+        f"kernel #2 bit-equal to plain on each of {c2.calls} launches; {wall:.2f} s against "
+        f"{ref_s:.2f} s for the reference")
+
+    n = MESH_QUERY_CHECK // D
+    sl = (w_d[:, :n].cpu(), nb_d[:, :n].cpu(), bid[:, :n], steps, ubs) + args
+    card = sq.sharded_decode_rate_hq(topo, *sl)
+    cpu = sq.sharded_decode_rate_hq(mesh.make_mesh(D, 1, ["cpu"] * D), *sl)
+    for a, b, what in zip(card, cpu, ("rates", "hq", "errs")):
+        assert same_bits(a.cpu(), b), f"(d) card vs CPU {what}"
+    log(f"phase20 (d) card == CPU on the first {n} streams of each shard: rates, hq and errs "
+        f"bit for bit")
+    t = {"query_streams": int(len(keep)), "query_shards": D, "query_encode_s": enc_s,
+         "query_sharded_s": wall, "query_reference_s": ref_s, "query_peak_gib": peak / 2**30,
+         "query_rates_bit_equal_to_reference": rates_exact, "query_hq_max_rel_err": hq_err,
+         "query_part_s": time.perf_counter() - t_part}
+    return t, launches, c2.err
+
+
+def mesh_phase(seed: int, S: int, dev, card: str) -> tuple:
+    """Phase 20: see the module docstring.  Returns (times, launches on the
+    mesh's main paths summed over the parts, the largest bit difference of
+    each kernel against its plain version there)."""
+    import torch
+
+    t_all = time.perf_counter()
+    t_a, l_a, err34 = mesh_sharded_step(seed, dev, card)
+    torch.cuda.empty_cache()
+    t_b = mesh_replicas(seed, dev, card)
+    t_c, l_c, err1, err2c = mesh_codec(seed, S, MESH_CODEC_POINTS, dev, card)
+    torch.cuda.empty_cache()
+    t_d, l_d, err2d = mesh_query(seed, PROMQL_GROUPS, PROMQL_BUCKETS, dev, card)
+    torch.cuda.empty_cache()
+    launches = {k: l_a[k] + l_c[k] + l_d[k] for k in l_a}
+    assert all(v > 0 for v in launches.values()), launches
+    t = {"a": t_a, "b": t_b, "c": t_c, "d": t_d, "launches": launches,
+         "phase_s": time.perf_counter() - t_all}
+    log(f"phase20 [{card}] mesh: " + json.dumps(t))
+    errs = {"place_words": err1, "extract_fields64_t": max(err2c, err2d),
+            "segment_ingest": err34, "segment_minmax": err34}
+    return t, launches, errs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4804,6 +5345,15 @@ def main() -> int:
             k.update(rec)
         if k["name"] == "place_words":  # and in the HOPS pipeline, every launch
             k["max_abs_err"] = max(k["max_abs_err"], tier_t["hops_place_max_abs_err"])
+    torch.cuda.empty_cache()
+
+    # ---- phase 20: the device mesh ----
+    t0 = time.perf_counter()
+    _, mesh_launched, mesh_err = mesh_phase(args.seed, S, dev, card)
+    log(f"phase20 done in {time.perf_counter() - t0:.1f} s")
+    for k in kernels:
+        k["mesh_launches"] = mesh_launched[k["name"]]
+        k["max_abs_err"] = max(k["max_abs_err"], mesh_err[k["name"]])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

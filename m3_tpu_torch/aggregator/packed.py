@@ -84,6 +84,9 @@ _MM_NEUTRAL = 0xFFFF0000  # min lane 0xFFFF (+32767), max lane 0 (-32768)
 
 _ERR_PROMOTE_K = 1  # more than K promotions/active pool slots in a batch
 _ERR_POOL_FULL = 2  # overflow pool exhausted
+# timer sample-buffer overflow: raised only in the sharded step's
+# lanes["err"] (the host PackedTimerArena grows its buffer instead)
+_ERR_TIMER_OVERFLOW = 4
 
 
 class DeviceStateError(RuntimeError):

@@ -14,7 +14,10 @@ Same two-phase formulation as the JAX reference, with the same names:
   emits per-datapoint (offset, width, flags) lane tables; phase 2
   (``_phase2``, the reference's ``gather`` chains tail) extracts every
   field at once (``m3_tpu_torch.parallel.decode_gather``: a CUDA kernel
-  on the card) and rebuilds the three value chains.
+  on the card) and rebuilds the three value chains.  The reference's
+  other tail, ``fused``, rebuilds the chains inside the scan itself from
+  the words the step has read; it has no kernel in either package and
+  runs here as plain tensor ops (``decode_batch_device(chains=...)``).
 
 All u64 words ride ``int64`` tensors (``m3_tpu_torch._bits``), and the
 float64 arithmetic of the format runs as exact integer emulation
@@ -740,12 +743,15 @@ def _bit(p, n: int):
     return (p & (1 << n)) != 0
 
 
-def _decode_step(carry, words, nbits, unit0, ctrl_tbl):
+def _decode_step(carry, words, nbits, unit0, ctrl_tbl, unit_tbl=None):
     """Phase 1 of the two-phase decode: ONE datapoint slot for every
     series at once, resolving only control bits, field widths and the
-    bit cursor; emits (ts_off, p1, val_off, p2) for ``_phase2``."""
+    bit cursor; emits (ts_off, p1, val_off, p2) for ``_phase2``.  Given
+    ``unit_tbl`` (the unit nanos on the device), the fused tail instead:
+    the carry has the seven chain lanes of ``_decode_carry0(base_time=)``
+    and the step emits the point's (ts, payload, meta)."""
     (cursor, done, err, need_start, first_val, saw_ann, unit_idx,
-     sig, mult, is_float, pl, pt) = carry
+     sig, mult, is_float, pl, pt) = carry[:12]
     active = ~done & ~err
 
     # ---- the 64-bit start word: only its alignment matters (unit0) ----
@@ -898,6 +904,42 @@ def _decode_step(carry, words, nbits, unit0, ctrl_tbl):
         n_sig, n_mult, n_is_float, n_pl, n_pt,
     )
 
+    if unit_tbl is not None:
+        # ---- the fused tail (the reference's ``emit_chains=True``): the
+        # three value chains advance with this point, from the words this
+        # step already read, and the point's (ts, payload, meta) is
+        # emitted; bit for bit the gather tail's outputs ----
+        time_, csum, csum_rst, fb, iv, prec, err2 = carry[12:]
+
+        # timestamps: running delta = csum - csum at the last unit reset
+        dod = _sign_extend(shr(rd3(ts_off, 64), 64 - ts_w.clamp(0, 64)), ts_w)
+        d_k = _W(emit, _W(full64, dod, dod * unit_tbl[new_unit.clamp(0, 15)]), 0)
+        csum2 = csum + d_k
+        time2 = time_ + _W(emit, csum2 - csum_rst, 0)
+        csum_rst2 = _W(emit & full64, csum2, csum_rst)
+
+        # float bits: running XOR, reset at full-float writes (``nx`` is
+        # the XOR word of the full-float and contained forms already)
+        pay_unc = shr(raw, 64 - u_meaningful.clamp(1, 64))
+        xv = _W(xor_nz & emit, _W(uncont, shl(pay_unc, u_trail.clamp(0, 63)), nx), 0)
+        fb2 = _W(emit & got_float_full, raw, fb ^ xv)
+
+        # int values; sign: opcodeNegative(1) -> +, opcodePositive(0) -> -
+        dv = shr(raw, 64 - eff_sig.clamp(0, 64))
+        iv2 = iv + _W(emit & diff_active, _W(sign_v, dv, -dv), 0)
+        prec2 = prec | (emit & diff_active
+                        & (ult(_PRECISION_LIMIT, dv) | (iv2.abs() > _PRECISION_LIMIT)))
+
+        # the canonical-XOR guard of the gather tail's phase 2
+        top_ok = shr(pay_unc, (u_meaningful - 1).clamp(0, 63)) == 1
+        bot_ok = (pay_unc & 1) == 1
+        err2_2 = err2 | (emit & uncont & ~(top_ok & bot_ok))
+
+        meta_o = ((emit.to(I64) << 4) | (n_is_float.to(I64) << 3)
+                  | n_mult.clamp(0, 7)).to(torch.uint8)
+        return (new_carry + (time2, csum2, csum_rst2, fb2, iv2, prec2, err2_2),
+                (_W(emit, time2, 0), _W(n_is_float, fb2, iv2), meta_o))
+
     # ---- lane-table emission (the gather tail) ----
     shift = _W(contained, pt, _W(uncont, u_trail.clamp(0, 63), 0))
     out_p1 = (_W(emit, ts_w, 0)
@@ -916,13 +958,19 @@ def _decode_step(carry, words, nbits, unit0, ctrl_tbl):
     return new_carry, (ts_off, out_p1, val_off, out_p2)
 
 
-def _decode_carry0(S: int, device):
+def _decode_carry0(S: int, device, base_time=None):
+    """Phase 1's initial carry; ``base_time`` (the start words) adds the
+    fused tail's seven chain lanes."""
     z = torch.zeros(S, dtype=I64, device=device)
     f = torch.zeros(S, dtype=torch.bool, device=device)
     t = torch.ones(S, dtype=torch.bool, device=device)
     # cursor, done, err, need_start, first_val, saw_ann, unit, sig,
     # mult, is_float, pl/pt of prev_xor == 0
-    return (z, f, f, t, t, f, z, z, z, f, torch.full_like(z, 64), z)
+    base = (z, f, f, t, t, f, z, z, z, f, torch.full_like(z, 64), z)
+    if base_time is None:
+        return base
+    # time, csum, csum at the last reset, float bits, int value, prec, err2
+    return base + (base_time.clone(), z, z, z, z, f, f)
 
 
 def _sign_extend(v, nbits):
@@ -1002,19 +1050,46 @@ def _phase2(wpad, ts_off, p1, val_off, p2):
     return ts, out_payload, meta, prec, err2
 
 
+CHAIN_IMPLS = ("fused", "gather")
+
+
+def resolved_chains(chains: str = "auto") -> str:
+    """A ``chains`` argument -> the tail that runs.  ``"auto"`` is
+    ``"gather"`` on every device: that tail's field extraction is the
+    port's kernel #2 on the card.  (The reference picks ``fused`` on its
+    CPU and reads an ``M3_DECODE_CHAINS`` override; the port has no
+    environment seam.)"""
+    if chains == "auto":
+        return "gather"
+    if chains not in CHAIN_IMPLS:
+        raise ValueError(f"chains={chains!r}: expected one of {CHAIN_IMPLS + ('auto',)}")
+    return chains
+
+
 def decode_batch_device(words, nbits, max_points: int, default_unit: int = 1,
-                        device=None, timings: dict | None = None):
+                        device=None, timings: dict | None = None, chains: str = "auto",
+                        scan_major: bool = False):
     """Decode (S, W) stream words (int64 carriers of big-endian u64
     words) in two phases: the bit-boundary scan (``_decode_step``), then
-    field extraction + chain reconstruction (``_phase2``).
+    field extraction + chain reconstruction, by one of two tails that
+    give the same bits (``chains``, see ``resolved_chains``):
+
+    ``gather``  ``_phase2`` after the scan: every field extracted at once
+                (kernel #2 on the card), then the chains over the point
+                axis.
+    ``fused``   the chains ride the scan itself (``_decode_step`` with
+                ``unit_tbl``), from the words each step has read; plain
+                tensor ops.
 
     Returns (ts (S, P) int64, payload (S, P) int64 (u64 bits),
     meta (S, P) uint8, err (S,), prec (S,), ann (S,)); the three (S, P)
     outputs are transposed views of scan-major (P, S) tensors (a
-    ``.t()`` gives the contiguous layout back).  meta: bit4 = valid,
-    bit3 = is_float, bits0-2 = multiplier.  ``ann`` marks streams that
-    carried annotation markers (each consumed one point slot).
+    ``.t()`` gives the contiguous layout back), or those (P, S) tensors
+    themselves with ``scan_major``.  meta: bit4 = valid, bit3 = is_float,
+    bits0-2 = multiplier.  ``ann`` marks streams that carried annotation
+    markers (each consumed one point slot).
     """
+    chains = resolved_chains(chains)
     dev = resolve_device(device)
     t0 = time.perf_counter()
     words = torch.as_tensor(words, dtype=I64).to(dev)
@@ -1027,10 +1102,17 @@ def decode_batch_device(words, nbits, max_points: int, default_unit: int = 1,
     ctrl_tbl = value_ctrl_table(dev)
 
     P = max_points
-    lanes = [torch.empty((P, S), dtype=I32, device=dev) for _ in range(4)]
-    carry = _decode_carry0(S, dev)
+    fused = chains == "fused"
+    if fused:
+        unit_tbl = torch.from_numpy(_UNIT_NANOS).to(dev)
+        lanes = [torch.empty((P, S), dtype=dt, device=dev) for dt in (I64, I64, torch.uint8)]
+        carry = _decode_carry0(S, dev, base_time=wpad[:, 0])
+    else:
+        unit_tbl = None
+        lanes = [torch.empty((P, S), dtype=I32, device=dev) for _ in range(4)]
+        carry = _decode_carry0(S, dev)
     for i in range(P):
-        carry, out = _decode_step(carry, wpad, nbits, unit0, ctrl_tbl)
+        carry, out = _decode_step(carry, wpad, nbits, unit0, ctrl_tbl, unit_tbl)
         for tbl, o in zip(lanes, out):
             tbl[i] = o
 
@@ -1043,9 +1125,14 @@ def decode_batch_device(words, nbits, max_points: int, default_unit: int = 1,
     err = carry[2] | ~done  # not done after max_points -> error
     t0 = _mark(timings, "phase1", dev, t0)
 
-    ts, payload, meta, prec, err2 = _phase2(wpad, *lanes)
+    if fused:
+        (ts, payload, meta), prec, err2 = lanes, carry[17], carry[18]
+    else:
+        ts, payload, meta, prec, err2 = _phase2(wpad, *lanes)
     _mark(timings, "phase2", dev, t0)
-    return ts.t(), payload.t(), meta.t(), err | err2, prec, carry[5]
+    if not scan_major:
+        ts, payload, meta = ts.t(), payload.t(), meta.t()
+    return ts, payload, meta, err | err2, prec, carry[5]
 
 
 def payload_value_bits(payload: np.ndarray, meta: np.ndarray) -> np.ndarray:

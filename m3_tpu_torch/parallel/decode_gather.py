@@ -85,10 +85,11 @@ def extract_fields64_t(words_t, offs_t, widths_t):
     if F * S == 0:
         return out
     lib = _lib()
-    rc = lib.m3_extract_fields64_t(
-        words_t.data_ptr(), offs_t.data_ptr(), widths_t.data_ptr(),
-        out.data_ptr(), W, F, S,
-        torch.cuda.current_stream(words_t.device).cuda_stream)
+    with torch.cuda.device(words_t.device):  # the runtime launches on the current device
+        rc = lib.m3_extract_fields64_t(
+            words_t.data_ptr(), offs_t.data_ptr(), widths_t.data_ptr(),
+            out.data_ptr(), W, F, S,
+            torch.cuda.current_stream(words_t.device).cuda_stream)
     _cuda.check(lib, rc, "extract_fields64_t")
     launches += 1
     return out

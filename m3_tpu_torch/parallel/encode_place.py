@@ -72,9 +72,10 @@ def place_words(frags, keys, out_words: int):
     if S * F == 0:
         return out
     lib = _lib()
-    rc = lib.m3_place_words(frags.data_ptr(), keys.data_ptr(), out.data_ptr(),
-                            S, F, out_words,
-                            torch.cuda.current_stream(frags.device).cuda_stream)
+    with torch.cuda.device(frags.device):  # the runtime launches on the current device
+        rc = lib.m3_place_words(frags.data_ptr(), keys.data_ptr(), out.data_ptr(),
+                                S, F, out_words,
+                                torch.cuda.current_stream(frags.device).cuda_stream)
     _cuda.check(lib, rc, "place_words")
     launches += 1
     return out

@@ -257,12 +257,13 @@ def segment_ingest_into(sum_col, cnt_col, sq_col, idx, values):
     hits, ctrl, tiles, order = _ingest_scratch(values.device, stream, n_out, n)
     lib = _lib(INGEST_KERNEL)
     grids = ctypes.c_int(0)
-    rc = lib.m3_segment_ingest_into(
-        idx.data_ptr(), values.data_ptr(), sum_col.data_ptr(), cnt_col.data_ptr(),
-        sq_col.data_ptr() if sq_col is not None else None, hits.data_ptr(),
-        ctrl.data_ptr(), tiles.data_ptr(), order.data_ptr(), n, n_out,
-        _DTYPE_CODE[values.dtype], int(idx.dtype == torch.int64),
-        int(cnt_col.dtype == torch.int64), stream.cuda_stream, ctypes.byref(grids))
+    with torch.cuda.device(values.device):  # the runtime launches on the current device
+        rc = lib.m3_segment_ingest_into(
+            idx.data_ptr(), values.data_ptr(), sum_col.data_ptr(), cnt_col.data_ptr(),
+            sq_col.data_ptr() if sq_col is not None else None, hits.data_ptr(),
+            ctrl.data_ptr(), tiles.data_ptr(), order.data_ptr(), n, n_out,
+            _DTYPE_CODE[values.dtype], int(idx.dtype == torch.int64),
+            int(cnt_col.dtype == torch.int64), stream.cuda_stream, ctypes.byref(grids))
     _cuda.check(lib, rc, "segment_ingest_into")
     launches[INGEST_KERNEL] += grids.value
 
@@ -283,10 +284,11 @@ def segment_minmax_into(mn_col, mx_col, idx, values):
     if not n:
         return
     lib = _lib(MINMAX_KERNEL)
-    rc = lib.m3_segment_minmax_into(
-        idx.data_ptr(), values.data_ptr(), mn_col.data_ptr(), mx_col.data_ptr(), n,
-        mn_col.shape[0], _DTYPE_CODE[values.dtype], int(idx.dtype == torch.int64),
-        torch.cuda.current_stream(values.device).cuda_stream)
+    with torch.cuda.device(values.device):  # the runtime launches on the current device
+        rc = lib.m3_segment_minmax_into(
+            idx.data_ptr(), values.data_ptr(), mn_col.data_ptr(), mx_col.data_ptr(), n,
+            mn_col.shape[0], _DTYPE_CODE[values.dtype], int(idx.dtype == torch.int64),
+            torch.cuda.current_stream(values.device).cuda_stream)
     _cuda.check(lib, rc, "segment_minmax_into")
     launches[MINMAX_KERNEL] += 1
 

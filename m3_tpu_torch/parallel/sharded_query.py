@@ -1,14 +1,21 @@
-"""The storage -> query pipeline on one card: M3TSZ bytes to quantiles.
-The counterpart of ``m3_tpu/parallel/sharded_query.py``.
+"""The storage -> query pipeline over a device mesh: M3TSZ bytes to
+quantiles.  The counterpart of ``m3_tpu/parallel/sharded_query.py``.
 
-``decode_rate_hq`` is the one-device form of the reference's per-shard
-program for ``histogram_quantile(q, sum by (le) (rate(bucket[R])))``:
-the batched decode (``encoding/m3tsz_torch.decode_batch_device``, whose
-field extraction is kernel #2), ``rate`` over the decoded (series x
-step) matrix, the by-bucket sum, then the histogram-quantile program;
-with one device there is no collective.  The D-device form, and the
-reference's ``single_device_reference`` oracle that checks it, wait for
-a device mesh in the port.
+``sharded_decode_rate_hq`` evaluates ``histogram_quantile(q, sum by
+(le) (rate(bucket[R])))`` over (shard x series) streams laid out on a
+mesh (``parallel/mesh.py``).  Each shard's devices run the per-shard
+program on their own streams:
+
+  1. the batched decode (``encoding/m3tsz_torch.decode_batch_device``,
+     whose field extraction is kernel #2 on a card);
+  2. ``rate`` over the decoded (series x step) matrix;
+  3. the partial by-bucket sum (kernel #3 above 64 buckets);
+
+then one ``psum`` over the shard axis combines the partial bucket
+matrices and the histogram-quantile program runs on every device.
+``single_device_reference`` is the same pipeline on one device over the
+flattened series axis, the equality oracle of the sharded form, and
+``decode_rate_hq`` the one-device form with no collective.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import torch
 
 from m3_tpu_torch import resolve_device
 from m3_tpu_torch.encoding import m3tsz_torch as codec
-from m3_tpu_torch.parallel import segment_ingest
+from m3_tpu_torch.parallel import mesh, segment_ingest
 from m3_tpu_torch.query import device_fns, temporal
 
 _I64_MAX = np.iinfo(np.int64).max
@@ -50,19 +57,27 @@ def decode_to_step_series(words, nbits, max_points: int):
 
 
 def _bucket_sum(rates, bucket_ids, num_buckets: int):
-    """(S, T) rates (NaN as 0) summed by le bucket -> (B, T) float64.
-    Up to 64 buckets an unrolled masked sum (no scatter).  Above that
-    each rate adds into its flat lane ``bucket * T + t`` through kernel
-    #3 (``segment_ingest_into``), which adds a lane's points in arrival
+    """(S, T) rates (NaN as 0) summed by le bucket -> (B, T) float64,
+    in an order fixed by S alone, so the card and the CPU give the same
+    bits.  Up to 64 buckets an unrolled masked sum (no scatter): each
+    bucket's masked rates, zero-padded to a power of two of rows, fold
+    in half until one row is left (``_pairwise_rows``; ``sum`` would add
+    in a tree whose order differs between the devices).  Above that each
+    rate adds into its flat lane ``bucket * T + t`` through kernel #3
+    (``segment_ingest_into``), which adds a lane's points in arrival
     order (series order here): the same bits on every run, equal to the
     CPU's ``index_add_``.  Every lane takes S/B adds, so the kernel runs
     its collided-lane pass."""
     r0 = torch.nan_to_num(rates)
     bidc = bucket_ids.clamp(0, num_buckets - 1)
     if num_buckets <= 64:
-        return torch.stack([
-            torch.where((bidc == b)[:, None], r0, 0.0).sum(dim=0)
-            for b in range(num_buckets)])
+        S, T = r0.shape
+        buf = r0.new_zeros((1 << max(S - 1, 0).bit_length(), T))
+        out, zero = r0.new_empty((num_buckets, T)), r0.new_zeros(())
+        for b in range(num_buckets):
+            torch.where((bidc == b)[:, None], r0, zero, out=buf[:S])
+            out[b] = _pairwise_rows(buf)
+        return out
     S, T = r0.shape
     dev = rates.device
     lanes = (bidc.to(torch.int64)[:, None] * T
@@ -74,6 +89,17 @@ def _bucket_sum(rates, bucket_ids, num_buckets: int):
     return part.view(num_buckets, T)
 
 
+def _pairwise_rows(buf):
+    """Row 0 of a (2^k, T) buffer after k halving folds (``buf[:h] +=
+    buf[h:2h]``): its column sums, added in the same order on every
+    device.  Rows below 2^(k-1) are overwritten."""
+    h = buf.shape[0]
+    while h > 1:
+        h //= 2
+        buf[:h] += buf[h:2 * h]
+    return buf[0]
+
+
 def _hq_one(total, ubs, q):
     """histogram_quantile of one (B, T) cumulative bucket matrix."""
     B = total.shape[0]
@@ -81,6 +107,20 @@ def _hq_one(total, ubs, q):
     return device_fns._histogram_quantile_kernel(
         total, torch.arange(B, device=dev)[None, :],
         torch.tensor([B], device=dev), ubs[None, :], q)[0]
+
+
+def _tensor(x, dtype):
+    """A host array or tensor as a tensor of ``dtype`` (u64 words as the
+    codec's int64 carriers), where it lies."""
+    if isinstance(x, np.ndarray) and x.dtype == np.uint64:
+        x = x.view(np.int64)
+    return torch.as_tensor(x, dtype=dtype)
+
+
+def _rates(words, nbits, step_times, range_nanos: int, max_points: int):
+    """Decode, then ``rate``: ((S, T) rates, (S,) errs) where the words lie."""
+    ts_p, vals_p, errs = decode_to_step_series(words, nbits, max_points)
+    return temporal.rate_family(ts_p, vals_p, step_times, range_nanos, "rate"), errs
 
 
 def decode_rate_hq(words, nbits, bucket_ids, step_times, ubs, range_nanos: int,
@@ -92,17 +132,61 @@ def decode_rate_hq(words, nbits, bucket_ids, step_times, ubs, range_nanos: int,
     tensors; ``device=None`` means CUDA.  Returns (rates (S, T),
     hq (T,), errs (S,)) on the device."""
     dev = resolve_device(device)
-
-    def on_dev(x, dtype):
-        if isinstance(x, np.ndarray) and x.dtype == np.uint64:
-            x = x.view(np.int64)  # the codec's int64 carriers of u64 words
-        return torch.as_tensor(x, dtype=dtype).to(dev)
-
-    ts_p, vals_p, errs = decode_to_step_series(
-        on_dev(words, torch.int64), on_dev(nbits, torch.int64), max_points)
-    rates = temporal.rate_family(ts_p, vals_p, on_dev(step_times, torch.int64),
-                                 range_nanos, "rate")
+    on_dev = lambda x, dtype: _tensor(x, dtype).to(dev)
+    rates, errs = _rates(on_dev(words, torch.int64), on_dev(nbits, torch.int64),
+                         on_dev(step_times, torch.int64), range_nanos, max_points)
     total = _bucket_sum(rates, on_dev(bucket_ids, torch.int64), num_buckets)
     hq = _hq_one(total, on_dev(ubs, torch.float64), q)
     return rates, hq, errs
+
+
+def sharded_decode_rate_hq(topo: mesh.MeshTopology, words, nbits, bucket_ids, step_times,
+                           ubs, range_nanos: int, q: float, max_points: int,
+                           num_buckets: int):
+    """histogram_quantile(q, sum by (le) (rate(bucket[range]))) over the
+    mesh: words (D, S, W) u64 streams (int64 carriers or a numpy uint64
+    array), nbits (D, S), bucket_ids (D, S) le-bucket index per series,
+    step_times (T,), ubs (B,) ascending upper bounds with +Inf last; host
+    arrays or tensors, shard d's going to shard d's devices.  Every
+    (shard, replica) device runs its shard's program on its own copy;
+    the bucket sums meet in one ``psum`` over the shard axis (added in
+    shard order).  Returns (rates (D, S, T), hq (T,), errs (D, S)) on the
+    mesh's first device (replica 0 of each shard)."""
+    blocks = (mesh.split(topo, _tensor(words, torch.int64)),
+              mesh.split(topo, _tensor(nbits, torch.int64)),
+              mesh.split(topo, _tensor(bucket_ids, torch.int64)),
+              mesh.replicate(topo, _tensor(step_times, torch.int64)),
+              mesh.replicate(topo, _tensor(ubs, torch.float64)))
+
+    def local(w, nb, bid, st):
+        rates, errs = _rates(w, nb, st, range_nanos, max_points)
+        return rates, errs, _bucket_sum(rates, bid, num_buckets)
+
+    rates, errs, part = mesh.unzip(mesh.run(topo, local, *blocks[:4]))
+    total = mesh.psum(topo, part, mesh.SHARD_AXIS)
+    hq = mesh.run(topo, lambda t, u: _hq_one(t, u, q), total, blocks[4])
+    return mesh.stack(topo, rates), hq[0][0], mesh.stack(topo, errs)
+
+
+def single_device_reference(words, nbits, bucket_ids, step_times, ubs, range_nanos: int,
+                            q: float, max_points: int, num_buckets: int, device=None):
+    """The same pipeline on one device (None = CUDA) over the flattened
+    series axis, the bucket sum added on the host in series order, as the
+    reference's oracle adds it: the equality oracle of
+    :func:`sharded_decode_rate_hq`.  Returns numpy (rates (D, S, T),
+    hq (T,), errs (D, S))."""
+    dev = resolve_device(device)
+    D, S = np.shape(nbits)
+    on_dev = lambda x, dtype: _tensor(x, dtype).to(dev)
+    rates, errs = _rates(on_dev(words, torch.int64).reshape(D * S, -1),
+                         on_dev(nbits, torch.int64).reshape(D * S),
+                         on_dev(step_times, torch.int64), range_nanos, max_points)
+    r = np.nan_to_num(rates.cpu().numpy())
+    total = np.zeros((num_buckets, r.shape[1]), dtype=np.float64)
+    bid = np.clip(_tensor(bucket_ids, torch.int64).cpu().numpy().reshape(D * S), 0,
+                  num_buckets - 1)
+    np.add.at(total, bid, r)
+    hq = _hq_one(torch.from_numpy(total).to(dev), on_dev(ubs, torch.float64), q)
+    return (rates.cpu().numpy().reshape(D, S, -1), hq.cpu().numpy(),
+            errs.cpu().numpy().reshape(D, S))
 

@@ -964,3 +964,128 @@ def test_hops_pipeline_on_card_writes_cpu_bytes(tmp_path):
     assert ep.launches > before
     cpu = hops.run_pipeline(96, 60, root=str(tmp_path / "cpu"), device="cpu")
     assert card["volume_sha256"] == cpu["volume_sha256"] == card["cold_volume_sha256"]
+
+
+# ---- the device mesh (parallel/mesh.py and the sharded paths) ----
+
+
+def _mesh_batch(D, W, C, N, seed):
+    rng = np.random.default_rng(seed)
+    from m3_tpu_torch.parallel.sharded_agg import ShardedBatch
+
+    return ShardedBatch(
+        windows=rng.integers(0, W, (D, N)).astype(np.int32),
+        slots=rng.integers(-2, C + 2, (D, N)).astype(np.int32),
+        counter_values=rng.integers(0, 1000, (D, N)).astype(np.int64),
+        gauge_values=np.where(rng.random((D, N)) < 0.02, np.nan, rng.normal(100, 10, (D, N))),
+        timer_values=np.abs(rng.normal(0.1, 0.02, (D, N))),
+        times=np.tile(np.arange(1, N + 1), (D, 1)).astype(np.int64))
+
+
+def _mesh_step(devices, layout, shards, replicas=1, seed=4):
+    """Two sharded steps (ingest + drain of window 0, then of window 1):
+    (lanes of each, the final state's tensors of replica 0, as numpy)."""
+    from m3_tpu_torch.parallel import mesh, sharded_agg as sa
+
+    topo = mesh.make_mesh(shards, replicas, devices)
+    W, C, N = 2, 512, 4096
+    state = sa.sharded_init(topo, W, C, 4 * N, layout=layout)
+    out = []
+    for window in (0, 1):
+        batch = _mesh_batch(shards, W, C, N, seed + window)
+        state, lanes = sa.sharded_ingest_consume(topo, state, batch, window, W, C,
+                                                 layout=layout)
+        out.append({k: [x.cpu().numpy() for x in (v if isinstance(v, tuple) else (v,))]
+                    for k, v in lanes.items()})
+    fields = [t.cpu().numpy() for f in state for row in f for t in row[0]]
+    return out, fields
+
+
+def _same_arrays(a, b):
+    return all(x.dtype == y.dtype and np.array_equal(
+        x.view(np.int64) if x.dtype == np.float64 else x,
+        y.view(np.int64) if y.dtype == np.float64 else y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["f64", "packed"])
+def test_sharded_step_on_card_equals_cpu(layout):
+    """Four shards on one card (a repeated device list) against four on
+    the CPU: every lane, the rollup, ``err`` and every state tensor bit
+    for bit; the f64 layout launches kernels #3 and #4, the packed none."""
+    dev = _cuda_or_skip()
+    before = dict(si.launches)
+    card, card_state = _mesh_step([dev] * 4, layout, 4)
+    moved = {k: si.launches[k] - before[k] for k in si.KERNELS}
+    assert all(moved.values()) if layout == "f64" else not any(moved.values())
+    cpu, cpu_state = _mesh_step(["cpu"] * 4, layout, 4)
+    for c, w in zip(card, cpu):
+        for k in w:
+            assert _same_arrays(c[k], w[k]), k
+    assert _same_arrays(card_state, cpu_state)
+
+
+@pytest.mark.gpu
+def test_sharded_f64_step_over_two_cards_equals_one_card():
+    """Each kernel wrapper launches on its tensor's card: two shards on
+    two cards equal two shards on one, bit for bit."""
+    _cuda_or_skip()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    two, two_state = _mesh_step(["cuda:0", "cuda:1"], "f64", 2)
+    one, one_state = _mesh_step(["cuda:0", "cuda:0"], "f64", 2)
+    for a, b in zip(two, one):
+        for k in b:
+            assert _same_arrays(a[k], b[k]), k
+    assert _same_arrays(two_state, one_state)
+
+
+@pytest.mark.gpu
+def test_sharded_codec_over_two_cards_equals_one_card():
+    """Kernels #1 and #2 on the second card: the sharded encode and decode
+    over two cards equal the one-card codec."""
+    from m3_tpu_torch.parallel.sharded_decode import decode_batch_device_sharded
+    from m3_tpu_torch.parallel.sharded_encode import encode_batch_device_sharded
+
+    dev = _cuda_or_skip()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    ts, vals, starts = _mixed_batch(9, 301, 60)
+    valid = np.ones(ts.shape, bool)
+    vb = vals.view(np.int64)
+    enc = encode_batch_device_sharded(ts, vb, starts, valid, out_words=80,
+                                      devices=["cuda:0", "cuda:1"])
+    one = mt.encode_batch_device(ts, vb, starts, valid, out_words=80, device=dev)
+    for k in ("words", "total_bits", "fallback"):
+        assert torch.equal(enc[k], one[k]), k
+    dec = decode_batch_device_sharded(one["words"], one["total_bits"], 61,
+                                      devices=["cuda:0", "cuda:1"])
+    want = mt.decode_batch_device(one["words"], one["total_bits"], 61, device=dev)
+    assert all(torch.equal(a, b) for a, b in zip(dec, want))
+
+
+@pytest.mark.gpu
+def test_sharded_query_on_card_equals_cpu():
+    """The D-shard query on four shards of one card against the same on
+    the CPU, bit for bit (the psum adds in shard order on both)."""
+    from m3_tpu_torch.parallel import mesh
+    from m3_tpu_torch.parallel import sharded_query as sq
+
+    dev = _cuda_or_skip()
+    D, S, T = 4, 50, 64
+    rng = np.random.default_rng(2)
+    ts = np.tile(START + np.arange(1, T + 1) * 15 * SEC, (D * S, 1)).astype(np.int64)
+    bid = rng.integers(0, 4, (D, S)).astype(np.int32)
+    vals = np.cumsum(np.tile(np.round(10.0 * (bid.reshape(-1, 1) + 1) / 4, 1), (1, T)), axis=1)
+    streams, fb = mt.encode_batch(ts, vals, np.full(D * S, START, np.int64), out_words=300,
+                                  device="cpu")
+    assert not fb.any()
+    words, nbits = mt.pack_streams(streams)
+    args = (words.reshape(D, S, -1), nbits.reshape(D, S), bid,
+            np.asarray(START + np.arange(8, 56, 4) * 15 * SEC, np.int64),
+            np.asarray([0.1, 0.5, 1.0, np.inf]), 5 * 60 * SEC, 0.9, T + 1, 4)
+    before = dg.launches
+    card = sq.sharded_decode_rate_hq(mesh.make_mesh(4, 1, [dev] * 4), *args)
+    assert dg.launches - before == 4
+    cpu = sq.sharded_decode_rate_hq(mesh.make_mesh(4, 1, ["cpu"] * 4), *args)
+    assert _same_arrays([x.cpu().numpy() for x in card], [x.numpy() for x in cpu])

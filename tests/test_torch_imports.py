@@ -29,7 +29,11 @@ def test_every_module_imports_with_jax_blocked():
               # the aggregator tier: wire, ingest, client, placements, bus
               "msg.protocol", "msg.bus", "msg.transport", "server.ingest_tcp",
               "client.aggregator_client", "cluster.placement",
-              "cluster.placement_mirrored", "collector.reporter", "tools.hops"):
+              "cluster.placement_mirrored", "collector.reporter", "tools.hops",
+              # the mesh: topology, replicas, the sharded step, codec and query
+              "parallel", "parallel.mesh", "parallel.replication", "parallel.sharded_agg",
+              "parallel.sharded_encode", "parallel.sharded_decode",
+              "parallel.sharded_query"):
         assert f"m3_tpu_torch.{m}" in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

@@ -10,7 +10,14 @@ on the CPU.
   ``single_device_reference`` on ``tests/test_sharded_query.py``'s corpus
   shape with D = 1: rates ``rtol`` 1e-14 (elementwise f64 arithmetic,
   which XLA may contract), hq ``rtol`` 1e-12 (the bucket sum adds in
-  another order), the error flags exactly.
+  another order), the error flags exactly;
+* ``sharded_decode_rate_hq`` on a (4, 2) mesh of ``cpu`` devices
+  against the reference's on ``make_mesh(4, 2)``, on
+  ``tests/test_sharded_query.py``'s corpus and past 64 buckets: rates
+  ``rtol`` 1e-14, hq ``rtol`` 1e-12 (XLA's all-reduce order is not
+  documented), errs exactly; and against the port's own
+  ``single_device_reference``: rates bit for bit (the same per-series
+  program), hq ``rtol`` 1e-12 (the bucket sums add in another order).
 """
 
 import functools
@@ -23,8 +30,10 @@ import jax
 import jax.numpy as jnp
 
 from m3_tpu.encoding import m3tsz_jax as jcodec
+from m3_tpu.parallel import make_mesh as jax_make_mesh
 from m3_tpu.parallel import sharded_query as jsq
 from m3_tpu_torch.encoding import m3tsz_torch as mt
+from m3_tpu_torch.parallel import mesh
 from m3_tpu_torch.parallel import sharded_query as tsq
 
 SEC = 10**9
@@ -141,3 +150,59 @@ def test_device_none_needs_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tsq.decode_rate_hq(w, np.zeros(1, np.int64), np.zeros(1, np.int32),
                            np.zeros(1, np.int64), np.asarray(UBS), SEC, 0.5, 4, 4)
+
+
+def _sharded_inputs(D, S, T, ubs, seed):
+    ts, vals, starts, bucket_ids = _bucket_corpus(D, S, T, seed=seed)
+    if len(ubs) != len(UBS):  # spread the series over every bucket
+        bucket_ids = np.random.default_rng(seed).integers(-1, len(ubs) + 1, (D, S))
+        bucket_ids = bucket_ids.astype(np.int32)
+    streams, fb = jcodec.encode_batch(ts, vals, starts, out_words=300)
+    assert not fb.any()
+    words, nbits = jcodec.pack_streams(streams)
+    step_times = np.asarray(START + np.arange(8, T - 8, 4) * 15 * SEC, np.int64)
+    return words.reshape(D, S, -1), nbits.reshape(D, S), bucket_ids, step_times
+
+
+@pytest.mark.parametrize("S,T,q,ubs", [
+    (6, 64, 0.9, UBS),
+    (40, 48, 0.5, tuple(float(b) for b in np.geomspace(0.01, 100.0, 65)) + (float("inf"),)),
+])
+def test_sharded_decode_rate_hq_matches_reference(S, T, q, ubs):
+    D, B = 4, len(ubs)
+    words, nbits, bid, step_times = _sharded_inputs(D, S, T, ubs, seed=3)
+    range_nanos = 5 * 60 * SEC
+    ubs = np.asarray(ubs)
+    jt = jax_make_mesh(4, 2, devices=jax.devices()[:8])
+    j_rates, j_hq, j_errs = jsq.sharded_decode_rate_hq(
+        jt, jnp.asarray(words), jnp.asarray(nbits), jnp.asarray(bid),
+        jnp.asarray(step_times), jnp.asarray(ubs), range_nanos, q, T + 1, B)
+    topo = mesh.make_mesh(4, 2, ["cpu"] * 8)
+    rates, hq, errs = tsq.sharded_decode_rate_hq(topo, words, nbits, bid, step_times, ubs,
+                                                 range_nanos, q, T + 1, B)
+    assert rates.shape == (D, S, len(step_times)) and hq.shape == (len(step_times),)
+    np.testing.assert_array_equal(errs.numpy(), np.asarray(j_errs))
+    assert not errs.any()
+    np.testing.assert_allclose(rates.numpy(), np.asarray(j_rates), rtol=1e-14)
+    np.testing.assert_allclose(hq.numpy(), np.asarray(j_hq), rtol=1e-12)
+    assert np.isfinite(hq.numpy()).all()
+    r_ref, hq_ref, e_ref = tsq.single_device_reference(words, nbits, bid, step_times, ubs,
+                                                       range_nanos, q, T + 1, B, device="cpu")
+    assert np.array_equal(rates.numpy(), r_ref, equal_nan=True)
+    np.testing.assert_allclose(hq.numpy(), hq_ref, rtol=1e-12)
+    np.testing.assert_array_equal(errs.numpy(), e_ref)
+    j_ref = jsq.single_device_reference(words, nbits, bid, step_times, ubs, range_nanos, q,
+                                        T + 1, B)
+    np.testing.assert_allclose(hq_ref, j_ref[1], rtol=1e-12)
+
+
+def test_replicas_run_their_own_copy():
+    """Every (shard, replica) device computes; the replicas agree bit for
+    bit and the result does not depend on the mesh's replica count."""
+    D, S, T = 4, 5, 40
+    words, nbits, bid, step_times = _sharded_inputs(D, S, T, UBS, seed=11)
+    args = (words, nbits, bid, step_times, np.asarray(UBS), 5 * 60 * SEC, 0.5, T + 1, 4)
+    one = tsq.sharded_decode_rate_hq(mesh.make_mesh(4, 1, ["cpu"] * 4), *args)
+    two = tsq.sharded_decode_rate_hq(mesh.make_mesh(4, 2, ["cpu"] * 8), *args)
+    for a, b in zip(one, two):
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
