@@ -5,10 +5,10 @@ Equivalent of `src/query/storage/m3` (FetchCompressed
 series) without the network hop — the engine and the database share a
 process, as in the reference's embedded coordinator mode.
 
-The counterpart of ``m3_tpu/query/storage_adapter.py``; ``SessionStorage``
-waits for the client package.  The engine over this storage runs on its
-own device (``Engine(DatabaseStorage(db), device=...)``): the adapter
-hands it host lists, as the database reads them.
+The counterpart of ``m3_tpu/query/storage_adapter.py``.  The engine over
+either storage runs on its own device (``Engine(DatabaseStorage(db),
+device=...)``, ``Engine(SessionStorage(session), device=...)``): the
+adapters hand it host lists, as the database and the session read them.
 """
 
 from __future__ import annotations
@@ -91,4 +91,29 @@ class DatabaseStorage:
                 # replica fan-out, not from this handle.
                 continue
             metas.append(SeriesMeta(tuple(sorted(d.tags().items()))))
+        return RawBlock.from_lists(pts, metas)
+
+
+class SessionStorage:
+    """Engine Storage over a ReplicatedSession: the coordinator-style
+    deployment where the query engine reaches storage through the
+    replica-merging client (`query/storage/m3/storage.go:215-225`
+    FetchCompressed → session.FetchTagged)."""
+
+    def __init__(self, session, namespace: str = "default"):
+        self.session = session
+        self.namespace = namespace
+
+    def fetch_raw(self, name, matchers, start_nanos, end_nanos) -> RawBlock:
+        fault.fire("query.fetch")
+        q = matchers_to_query(name, matchers)
+        docs = self.session.query_ids(self.namespace, q, start_nanos, end_nanos)
+        pts = []
+        for i, d in enumerate(docs):
+            if i % 64 == 0:  # per-series replica fan-out: cancellable
+                xdeadline.check_current("fetch series")
+            pts.append(
+                self.session.fetch(self.namespace, d.id, start_nanos,
+                                   end_nanos))
+        metas = [SeriesMeta(tuple(sorted(d.tags().items()))) for d in docs]
         return RawBlock.from_lists(pts, metas)

@@ -5,9 +5,10 @@ Equivalent of the reference's monolithic startup
 (`src/dbnode/server/server.go:171 Run`: config → pools → topology →
 storage.NewDatabase → servers → bootstrap; and the query side
 `src/query/server/query.go:195`): build the instrument registry, the
-Database (with namespaces from config), bootstrap it, open the mediator
-loop, and serve the HTTP API.  `Assembly.close()` tears down in reverse
-order.
+Database (with namespaces from config), the control plane (KV, the
+topology watcher and shard migrator), bootstrap (local, then from
+peers), the RPC listener, the mediator loop, and the HTTP and admin
+APIs.  `Assembly.close()` tears down in reverse order.
 
 The node runs on ``device`` (None = CUDA; raises without a card).  The
 reference's process-global env seams have no counterpart:
@@ -38,18 +39,6 @@ _LOG = instrument.logger("server.assembly")
 # (config field, predicate on the NodeConfig, the reference module it
 # needs): run_node refuses each one that is set
 UNPORTED = (
-    ("db.rpc_listen_port", lambda c: c.db.rpc_listen_port is not None,
-     "m3_tpu/server/rpc.py"),
-    ("db.peers", lambda c: bool(c.db.peers),
-     "m3_tpu/server/rpc.py and m3_tpu/storage/repair.py"),
-    ("db.kv_endpoint", lambda c: c.db.kv_endpoint is not None,
-     "m3_tpu/cluster/kv_remote.py"),
-    ("db.instance_id", lambda c: c.db.instance_id is not None,
-     "m3_tpu/cluster/topology.py and m3_tpu/storage/migration.py"),
-    ("coordinator.admin_listen_port",
-     lambda c: (c.coordinator is not None
-                and c.coordinator.admin_listen_port is not None),
-     "m3_tpu/server/admin_api.py"),
     ("coordinator.carbon_listen_port",
      lambda c: (c.coordinator is not None
                 and c.coordinator.carbon_listen_port is not None),
@@ -100,7 +89,13 @@ class Assembly:
     mediator: Mediator | None
     http_server: object | None
     tracer: object | None = None
+    admin_server: object | None = None
+    kv: object | None = None
+    rpc_server: object | None = None
+    peer_handles: list = dataclasses.field(default_factory=list)
     scrubber: object | None = None
+    topology: object | None = None   # cluster.topology.TopologyWatcher
+    migrator: object | None = None   # storage.migration.ShardMigrator
     downsampler: object | None = None   # coordinator.downsample.Downsampler
     checkpointer: object | None = None  # aggregator.checkpoint.AggregatorCheckpointer
 
@@ -108,23 +103,48 @@ class Assembly:
     def port(self) -> int | None:
         return self.http_server.server_address[1] if self.http_server else None
 
+    @property
+    def rpc_port(self) -> int | None:
+        return self.rpc_server.port if self.rpc_server else None
+
+    @property
+    def admin_port(self) -> int | None:
+        return self.admin_server.server_address[1] if self.admin_server else None
+
     def close(self) -> None:
-        """Stop the front door, join the mediator (a pass in flight
-        finishes first), then close the database."""
-        if self.http_server is not None:
-            self.http_server.shutdown()
-            self.http_server.server_close()
-            self.http_server = None
+        """Stop the listeners (RPC, admin, HTTP), join the mediator (a
+        pass in flight finishes first), release the migrator, the
+        topology watch and the KV client, then close the database."""
+        for h in self.peer_handles:
+            h.close()
+        self.peer_handles = []
+        for attr in ("rpc_server", "admin_server", "http_server"):
+            srv = getattr(self, attr)
+            if srv is not None:
+                srv.shutdown()
+                srv.server_close()
+                setattr(self, attr, None)
         if self.mediator is not None:
             self.mediator.close()
             self.mediator = None
+        if self.migrator is not None:
+            self.migrator.close()
+            self.migrator = None
+        if self.topology is not None:
+            self.topology.close()
+            self.topology = None
+        # the KV client closes only after every server that used it is
+        # down — a racing admin request must not reconnect a closed store
+        if self.kv is not None and hasattr(self.kv, "close"):
+            self.kv.close()
         self.db.close()
 
-    def drain(self) -> None:
+    def drain(self, handoff_timeout_s: float = 60.0) -> None:
         """SIGTERM drain (the reference dbnode's graceful shutdown):
-        stop taking ingest → persist what we hold → tear down.  This
-        node owns every shard (no placement), so unlike the reference's
-        drain there is no shard handoff to wait for."""
+        stop taking ingest → persist what we hold → wait for any LEAVING
+        shards to cut over to their new owners → tear down.  The RPC
+        listener stays up until the very end so peers can stream this
+        node's blocks throughout the handoff window."""
         if self.http_server is not None:
             self.http_server.shutdown()
             self.http_server.server_close()
@@ -133,7 +153,9 @@ class Assembly:
             self.mediator.close()
             self.mediator = None
         # Persist everything persistable: seal+flush whatever left the
-        # warm window, snapshot the still-open buffers, rotate the WAL.
+        # warm window, snapshot the still-open buffers, rotate the WAL
+        # — a restart replays cleanly AND peers can stream every
+        # flushed block.
         try:
             now = _time.time_ns()
             self.db.tick(now)
@@ -147,6 +169,13 @@ class Assembly:
                 self.checkpointer.save()
             except Exception:  # noqa: BLE001 — drain must reach close()
                 _LOG.exception("drain: aggregator checkpoint failed")
+        if self.migrator is not None:
+            if not self.migrator.wait_handed_off(handoff_timeout_s):
+                _LOG.warning(
+                    "drain: handoff incomplete after %.0fs "
+                    "(LEAVING shards remain; replicas will repair)",
+                    handoff_timeout_s,
+                )
         self.close()
 
 
@@ -173,8 +202,9 @@ def run_node(source, start_mediator: bool | None = None,
              serve_http: bool = True, ruleset=None, device=None) -> Assembly:
     """Boot a node from a YAML/JSON path or string, or a NodeConfig.
 
-    Mirrors server.Run's order: config validate → storage → bootstrap →
-    background maintenance → front door.  `ruleset` (a
+    Mirrors server.Run's order: config validate → storage → control
+    plane (KV, topology watcher, migrator) → bootstrap (local, then
+    peers) → RPC listener → background maintenance → front doors.  `ruleset` (a
     metrics.rules.RuleSet) is required when the coordinator config sets
     `downsample: true` — rules are programmatic/KV objects in the
     reference too, not static YAML.  ``device`` is where the database,
@@ -249,15 +279,84 @@ def run_node(source, start_mediator: bool | None = None,
     # half-built node must not leak its mediator thread or bound socket.
     asm = Assembly(cfg, registry, db, None, None, tracer)
     try:
+        # Control plane FIRST: the topology watcher must install this
+        # node's shard ownership before bootstrap so WAL replay and the
+        # peers pass are placement-scoped from the very first byte.
+        need_kv = (
+            cfg.db.kv_endpoint is not None
+            or cfg.db.instance_id is not None
+            or (cfg.coordinator is not None
+                and cfg.coordinator.admin_listen_port is not None)
+        )
+        if need_kv:
+            if cfg.db.kv_endpoint:
+                # shared external control plane (etcd role) — survives
+                # this node and is visible to every replica
+                from m3_tpu_torch.cluster.kv_remote import RemoteKVStore
+
+                h, _, p = cfg.db.kv_endpoint.rpartition(":")
+                asm.kv = RemoteKVStore((h, int(p)))
+            else:
+                from m3_tpu_torch.cluster.kv import KVStore
+
+                asm.kv = KVStore(cfg.db.root)  # file-backed control plane
+        if cfg.db.instance_id is not None and asm.kv is not None:
+            from m3_tpu_torch.cluster.placement import PlacementService
+            from m3_tpu_torch.cluster.topology import TopologyWatcher
+            from m3_tpu_torch.storage.migration import ShardMigrator
+
+            asm.topology = TopologyWatcher(asm.kv, cfg.db.instance_id)
+            asm.migrator = ShardMigrator(
+                db, asm.topology, PlacementService(asm.kv),
+                stream_blocks_per_tick=cfg.mediator.migrate_blocks,
+                grace_ticks=cfg.mediator.migrate_grace_ticks,
+                instrument=scope,
+            )
+
         db.bootstrap()
 
-        # Corruption scrubber: always constructed; attached to the
-        # mediator loop only when a per-tick budget is configured.  No
-        # peers: peer repair is not ported.
+        # Peers bootstrap: after local fs+commitlog recovery, pull any
+        # (shard, block) filesets a replica peer has that this node
+        # lacks, over the socket RPC (the bootstrap chain's final
+        # `peers` stage — bootstrapper/peers/source.go).  Unreachable
+        # peers are skipped; repair converges them later.  With a
+        # topology watcher installed the pass is scoped to
+        # placement-owned shards.
+        if cfg.db.peers:
+            from m3_tpu_torch.server.rpc import RemoteDatabase
+
+            asm.peer_handles = [
+                RemoteDatabase((h, int(p)))
+                for h, _, p in (a.rpartition(":") for a in cfg.db.peers)
+            ]
+            if cfg.db.bootstrap_peers:
+                from m3_tpu_torch.storage.repair import peers_bootstrap
+
+                for ns_name in cfg.db.namespaces:
+                    peers_bootstrap(db, asm.peer_handles, ns_name)
+
+        if cfg.db.rpc_listen_port is not None:
+            from m3_tpu_torch.server.rpc import serve_rpc_background
+
+            asm.rpc_server = serve_rpc_background(
+                db, host=cfg.db.rpc_listen_host, port=cfg.db.rpc_listen_port
+            )
+            if cfg.disk.enabled:
+                # CRITICAL watermark → refuse write batches un-acked
+                # (typed RPC_ERR the session's consistency level
+                # absorbs); reads/repair/ticks are never gated.
+                asm.rpc_server.ingest_gate = _diskbudget.check_ingest
+
+        # Corruption scrubber: always constructed (the admin endpoint
+        # scrubs on demand); attached to the mediator loop only when a
+        # per-tick budget is configured.  Peers double as the repair
+        # source — a quarantined (shard, block) hole heals from a
+        # replica on the next sweep.
         from m3_tpu_torch.storage.scrub import Scrubber
 
         asm.scrubber = Scrubber(
-            db, budget_volumes=cfg.mediator.scrub_volumes, instrument=scope,
+            db, peers=asm.peer_handles,
+            budget_volumes=cfg.mediator.scrub_volumes, instrument=scope,
         )
 
         # Downsampler BEFORE the mediator: its window drain and arena
@@ -323,6 +422,8 @@ def run_node(source, start_mediator: bool | None = None,
                 scrubber=(asm.scrubber
                           if cfg.mediator.scrub_volumes > 0 else None),
                 scrub_every=cfg.mediator.scrub_every,
+                migrator=asm.migrator,
+                migrate_every=cfg.mediator.migrate_every,
                 downsampler=downsampler,
                 checkpointer=asm.checkpointer,
                 checkpoint_every=(cfg.coordinator.checkpoint_every
@@ -341,6 +442,7 @@ def run_node(source, start_mediator: bool | None = None,
                 query_timeout_s=parse_duration(cfg.query.default_timeout) / 1e9,
                 slow_query_fraction=cfg.query.slow_query_fraction,
                 checkpointer=asm.checkpointer,
+                migrator=asm.migrator,
             )
 
             # Admission/slow-query observability rides the scrape-time
@@ -356,6 +458,44 @@ def run_node(source, start_mediator: bool | None = None,
             registry.register_collector(collect_query)
             asm.http_server = serve_background(
                 ctx, cfg.coordinator.listen_host, cfg.coordinator.listen_port
+            )
+        if (serve_http and cfg.coordinator is not None
+                and cfg.coordinator.admin_listen_port is not None):
+            from m3_tpu_torch.server.admin_api import (
+                AdminContext, serve_admin_background,
+            )
+
+            # asm.kv was built up front (the topology watcher shares it)
+            admin_ctx = AdminContext(asm.kv, db, scrubber=asm.scrubber,
+                                     migrator=asm.migrator)
+            # live-tune query limits + cache budget through runtime
+            # options (runtime_options_manager.go's role)
+            def _limit_applier(lim):
+                def apply(value, _lim=lim):
+                    _lim.limit = int(value)
+                return apply
+
+            appliers = [
+                ("max_docs_matched", _limit_applier(limits.docs)),
+                ("max_series_read", _limit_applier(limits.series)),
+                ("max_bytes_read", _limit_applier(limits.bytes)),
+                ("block_cache_max_bytes",
+                 lambda v: setattr(db.block_cache, "max_bytes", int(v))),
+                ("write_new_series_limit_per_sec",
+                 lambda v: db.new_series_limiter.set_rate(float(v))),
+            ]
+            for opt, apply in appliers:
+                admin_ctx.runtime.on_change(opt, apply)
+                # replay the persisted value: the KV watch fired during
+                # AdminContext construction, BEFORE this listener existed
+                # — a restart must re-apply tuned values, not report
+                # them while running untuned
+                persisted = admin_ctx.runtime.get(opt)
+                if persisted:
+                    apply(persisted)
+            asm.admin_server = serve_admin_background(
+                admin_ctx, cfg.coordinator.listen_host,
+                cfg.coordinator.admin_listen_port,
             )
     except BaseException:
         asm.close()

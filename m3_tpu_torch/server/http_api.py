@@ -72,8 +72,7 @@ _NOT_PORTED = {
     "/debug/dump": "m3_tpu/instrument/debug.py",
 }
 # /health sections of the reference whose subsystem is not ported
-_ABSENT_HEALTH = ("topology", "device.stages", "device.membudget", "slo",
-                  "controller")
+_ABSENT_HEALTH = ("device.stages", "device.membudget", "slo", "controller")
 
 
 def _parse_time(v: str) -> int:
@@ -233,6 +232,15 @@ class _Handler(BaseHTTPRequestHandler):
                     for e in inv[:50]
                 ],
             }
+        # Topology/migration visibility: which shards this node serves
+        # per the watched placement, per-shard streaming progress of
+        # INITIALIZING ones, and pending grace-period drops — the
+        # operator's window into a rolling node add/replace/remove.
+        if self.ctx.migrator is not None:
+            try:
+                out["topology"] = self.ctx.migrator.status()
+            except Exception:  # noqa: BLE001 — health must never 500
+                pass
         # Hot-path latency (windowed histogram summaries, NOT lifetime
         # reservoirs): merged p50/p99 per surface — ingest batches,
         # query phases, flush/snapshot, drains.  Omitted while no
@@ -609,16 +617,18 @@ def _fmt(v: float) -> str:
 class ApiContext:
     """What the handlers serve: the database, its engine (on the
     database's device), admission, deadlines and the latency
-    histograms.  The reference's federation, migration, selfmon and
-    controller hooks have no port and no parameter here."""
+    histograms, and the shard migrator whose status ``/health`` serves.
+    The reference's federation, selfmon and controller hooks have no
+    port and no parameter here."""
 
     def __init__(self, db: Database, namespace: str = "default",
                  downsampler=None, registry=None, tracer=None,
                  admission: AdmissionController | None = None,
                  query_timeout_s: float = 30.0,
                  slow_query_fraction: float = 0.75,
-                 metrics_scope=None, checkpointer=None):
+                 metrics_scope=None, checkpointer=None, migrator=None):
         self.db = db
+        self.migrator = migrator  # storage.migration.ShardMigrator | None
         self.namespace = namespace
         self.downsampler = downsampler
         self.registry = registry

@@ -3,8 +3,8 @@ The port's counterpart of ``m3_tpu/server/node_main.py``.
 
 Equivalent of the reference's service mains
 (`src/cmd/services/m3dbnode/main/main.go` — parse config, server.Run,
-block on signals).  Writes a `<root>/node.json` status file (pid + HTTP
-port) once serving, so harnesses can discover the ephemeral port;
+block on signals).  Writes a `<root>/node.json` status file (pid, HTTP,
+RPC and admin ports) once serving, so harnesses can discover the ephemeral port;
 SIGTERM drains (final flush + snapshot) and exits 0.
 
 The node runs on the CUDA card and raises without one; ``--device cpu``
@@ -42,6 +42,8 @@ def main(argv=None) -> int:
     status = {
         "pid": os.getpid(),
         "port": asm.port,
+        "rpc_port": asm.rpc_port,
+        "admin_port": asm.admin_port,
         "root": cfg.db.root,
         "device": str(asm.db.device),
     }

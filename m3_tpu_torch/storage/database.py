@@ -24,9 +24,11 @@ open in-memory window — the same two-source merge the reference does with
 its device to every shard's buffer, to the index's bitset executor and to
 the flush's batched encoder.  ``instrument=`` takes a scope of the port's
 registry (``m3_tpu_torch.instrument``) and keeps the reference's
-counters and histograms under ``db``.  Left out beside the JAX package: the
-block-level replication surface (repair and peers bootstrap), the
-placement template for namespaces created later, and ``drop_shard``.
+counters and histograms under ``db``.  The block-level replication
+surface (``list_block_filesets``, ``block_metadata``, ``read_block``,
+``write_block``) that repair, peers bootstrap and the shard migrator run
+against moves host bytes only: fileset segments are read and written as
+the reference writes them.
 """
 
 from __future__ import annotations
@@ -739,6 +741,9 @@ class Database:
         )
         self.corruption_detected = 0
         self.corruption_quarantined = 0
+        # (num_shards, owned) the topology watcher last installed:
+        # inherited by namespaces created later (see ensure_namespace).
+        self._ownership_template: tuple | None = None
         self.bootstrapped = False
 
     def _note_corruption(self, namespace: str, shard: int, block_start: int,
@@ -773,6 +778,18 @@ class Database:
 
     # ---- placement-driven shard ownership -------------------------------
 
+    def set_ownership_template(self, num_shards: int,
+                               owned: Iterable[int] | None) -> None:
+        """Ownership applied to namespaces created AFTER the placement
+        was observed (dynamic namespace add, downsampler
+        ensure_namespace): a new namespace sharing the placement's
+        shard space must start placement-scoped, not own-all — without
+        this it would silently bypass the ownership invariant until the
+        next placement version bump."""
+        with self._mu:
+            self._ownership_template = (
+                int(num_shards), None if owned is None else frozenset(owned))
+
     def set_shard_ownership(self, namespace: str | None,
                             owned: Iterable[int] | None) -> None:
         """Install the placement-derived shard set this node serves
@@ -791,6 +808,38 @@ class Database:
         ns = self.namespaces[namespace]
         return ns.owned
 
+    def drop_shard(self, namespace: str, shard_id: int) -> int:
+        """Discard one shard's local state: every fileset volume on
+        disk, the in-memory buffers/slots, and cached blocks — the
+        post-cutover cleanup of a LEAVING shard (reference dbnode
+        closes and deletes shards the topology moved away).  Returns
+        the number of fileset volumes removed.  The caller (migrator)
+        is responsible for grace: by the time this runs, ownership has
+        already been revoked and clients re-routed."""
+        with self._mu:
+            ns = self.namespaces[namespace]
+            removed = 0
+            for bs, vol in list_fileset_volumes(self.opts.root, namespace,
+                                                shard_id):
+                remove_fileset(self.opts.root, namespace, shard_id, bs, vol)
+                self.block_cache.invalidate_block(namespace, shard_id, bs)
+                removed += 1
+            # A fresh Shard starts empty (the fileset scan above left
+            # nothing) — buffers, slots and flushed-block bookkeeping
+            # all reset in one swap; its ring is allocated on the
+            # namespace's device.
+            ns.shards[shard_id] = Shard(
+                namespace, shard_id, ns.opts, self.opts.root,
+                self.block_cache,
+                new_series_limiter=self.new_series_limiter,
+                corruption_cb=self._note_corruption, device=ns.device,
+            )
+            _LOG.info("dropped shard ns=%s shard=%d (%d fileset volumes)",
+                      namespace, shard_id, removed)
+            if self._scope is not None:
+                self._scope.counter("shards_dropped").inc()
+            return removed
+
     def ensure_namespace(self, name: str,
                          opts: NamespaceOptions | None = None) -> Namespace:
         """Create-if-missing (the reference adds namespaces dynamically
@@ -807,6 +856,9 @@ class Database:
                     new_series_limiter=self.new_series_limiter,
                     corruption_cb=self._note_corruption, device=self.device,
                 )
+                tpl = self._ownership_template
+                if tpl is not None and tpl[0] == ns.opts.num_shards:
+                    ns.owned = tpl[1]  # placement-scoped from birth
             return ns
 
     def write_batch(self, namespace: str, ids: Sequence[bytes], ts, vals,
@@ -941,6 +993,64 @@ class Database:
         if self._hist_tick is not None:
             self._hist_tick.record(time.perf_counter() - t0)
         return stats
+
+    # ---- block-level replication surface -------------------------------
+    # The handle interface repair and peers bootstrap run against; the
+    # socket RPC (server/rpc.py) exports exactly these four methods so a
+    # replica works the same whether it is this object or a remote node
+    # (reference FetchBlocksMetadataRawV2 `node/service.go:1529` + the
+    # peer block streaming in `client/peer.go`).  Segments cross as host
+    # bytes: nothing here touches the device.
+
+    def list_block_filesets(self, namespace: str, shard: int):
+        """[(block_start, latest volume)] flushed for the shard."""
+        return sorted(list_filesets(self.opts.root, namespace, shard))
+
+    def block_metadata(self, namespace: str, shard: int, block_start: int):
+        """Per-series stream checksums for one flushed block, or None
+        when no fileset exists for it.
+
+        Served from the fileset's index entries alone (the writer stores
+        adler32-of-segment per entry), never touching the data file —
+        the metadata-only property of the reference's
+        FetchBlocksMetadataRawV2."""
+        filesets = dict(list_filesets(self.opts.root, namespace, shard))
+        if block_start not in filesets:
+            return None
+        r = DataFileSetReader(
+            self.opts.root, namespace, shard, block_start, filesets[block_start]
+        )
+        return {e.id: e.checksum for e in r.entries()}
+
+    def read_block(self, namespace: str, shard: int, block_start: int):
+        """All (series id, encoded stream) pairs of one flushed block;
+        [] when the block has no fileset."""
+        filesets = dict(list_filesets(self.opts.root, namespace, shard))
+        if block_start not in filesets:
+            return []
+        r = DataFileSetReader(
+            self.opts.root, namespace, shard, block_start, filesets[block_start]
+        )
+        return list(r.read_all())
+
+    def write_block(self, namespace: str, shard: int, block_start: int,
+                    series) -> None:
+        """Persist a full block's series as the next fileset volume and
+        mark it flushed (repair rewrite / peers-bootstrap load)."""
+        with self._mu:
+            ns = self.namespaces[namespace]
+            # A non-owner must not accept streamed blocks: repair
+            # writing a merged block at a decommissioned replica would
+            # resurrect data the topology moved away (callers treat
+            # this like any per-replica failure and skip the replica).
+            ns.check_owned(shard)
+            filesets = dict(list_filesets(self.opts.root, namespace, shard))
+            vol = filesets.get(block_start, -1) + 1
+            DataFileSetWriter(
+                self.opts.root, namespace, shard, block_start,
+                ns.opts.block_size_nanos, volume=vol,
+            ).write_all(sorted(series))
+            ns.shards[shard].flushed_blocks.add(block_start)
 
     def snapshot(self) -> dict:
         """Capture every namespace's un-flushed buffers as snapshot

@@ -19,8 +19,7 @@ is logged and counted (``*_errors``) and the pass goes on, as in the
 reference; callers that must not miss a failure read those counters and
 the returned stats.  :meth:`close` joins the loop thread, so a pass in
 flight ends before the caller frees the database.  The reference's
-migration, selfmon and controller stages have no port yet and no
-parameter here.
+selfmon and controller stages have no port yet and no parameter here.
 """
 
 from __future__ import annotations
@@ -51,6 +50,8 @@ class Mediator:
         cleanup_every: int = 6,
         scrubber=None,
         scrub_every: int = 1,
+        migrator=None,
+        migrate_every: int = 1,
         downsampler=None,
         checkpointer=None,
         checkpoint_every: int = 0,
@@ -67,6 +68,11 @@ class Mediator:
         # per pass so it never monopolizes a tick.
         self.scrubber = scrubber
         self.scrub_every = max(1, scrub_every)
+        # Optional storage.migration.ShardMigrator: the shard lifecycle
+        # (stream INITIALIZING, cut over, grace-drop LEAVING leftovers)
+        # runs off this same thread, budgeted per tick like the scrub.
+        self.migrator = migrator
+        self.migrate_every = max(1, migrate_every)
         # Optional coordinator Downsampler: its window drain rides the
         # maintenance loop (the reference coordinator's flush manager
         # role) — without this, a live node's downsampled aggregates
@@ -123,6 +129,13 @@ class Mediator:
                     _LOG.exception("mediator: disk-pressure stage failed")
                     if self._scope is not None:
                         self._scope.counter("disk_pressure_errors").inc()
+            if (self.migrator is not None
+                    and self._ticks % self.migrate_every == 0):
+                # Shard lifecycle before the scrub stage: a freshly
+                # streamed block is immediately eligible for verify,
+                # and a due drop frees its volumes before the sweep
+                # re-lists them.
+                stats["topology"] = self.migrator.tick()
             if self.downsampler is not None:
                 try:
                     stats["downsample_flushed"] = self.downsampler.flush(now)

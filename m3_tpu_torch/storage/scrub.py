@@ -1,4 +1,5 @@
 """Background integrity scrubber: detect → quarantine → repair from peers.
+The port's counterpart of ``m3_tpu/storage/scrub.py``.
 
 The wire layer already treats every network failure as expected
 and recoverable; this module gives the *disk* edge the same contract.
@@ -28,20 +29,23 @@ Counters (``scrub.*`` on a node's /metrics): ``volumes_checked``,
 ``corruptions_found``, ``repair_attempts``, ``repairs_completed``,
 ``sweeps``.
 
-The port's copy of ``m3_tpu/storage/scrub.py`` with no peers: it
-detects and quarantines, and a hole waits for a WAL-covered flush or an
-operator restore.  Peer repair (``storage/repair.py``) needs the RPC data
-plane, which is not ported, so ``Scrubber(peers=[...])`` raises.  The
-reference's offline sweep (``scrub_root``, for its CLI) is not ported.
+Also runnable on demand: ``POST /api/v1/database/scrub`` (admin API)
+runs an unbudgeted sweep in-process.  The reference's offline sweep
+(``scrub_root``, for its CLI) has no caller in the port and is not
+ported.
 """
 
 from __future__ import annotations
 
 import struct
 import threading
-from typing import List
+from typing import Dict, List
 
+from m3_tpu_torch.instrument import logger
+from m3_tpu_torch.persist import quarantine as quar
 from m3_tpu_torch.persist.fs import DataFileSetReader, list_fileset_volumes
+
+_LOG = logger("storage.scrub")
 
 
 def verify_volume(root, namespace: str, shard: int, block_start: int,
@@ -76,21 +80,28 @@ def _verify_outcome(root, namespace: str, shard: int, block_start: int,
 class Scrubber:
     """Owns the sweep cursor and the repair worklist for one Database.
 
-    ``peers`` must be empty: the scrubber detects and quarantines (a
-    later WAL-covered flush or an operator restore fills the hole).
+    ``peers`` are replica handles (local ``Database`` objects or
+    ``server.rpc.RemoteDatabase``) used for post-quarantine recovery;
+    with no peers the scrubber still detects and quarantines (a later
+    WAL-covered flush or an operator restore fills the hole).
     """
+
+    #: per-(ns, shard, block) ceiling on peer-repair attempts; a hole
+    #: nobody can fill (no replica ever flushed it, or it aged out of
+    #: retention everywhere) must not generate RPC traffic forever.
+    #: In-memory, so a restart grants a fresh allowance — bounded both
+    #: ways.
+    REPAIR_ATTEMPT_CAP = 5
 
     def __init__(self, db, peers: List[object] | None = None,
                  budget_volumes: int = 4, instrument=None):
-        if peers:
-            raise NotImplementedError(
-                "Scrubber(peers=...): peer repair (storage/repair.py) is "
-                "not ported; the port's scrubber detects and quarantines")
         self.db = db
-        self.peers: List[object] = []
+        self.peers = list(peers or [])
         self.budget_volumes = int(budget_volumes)
         self._cursor = None  # last (ns, shard, block, vol) verified
         self._lock = threading.Lock()
+        self._repair_lock = threading.Lock()  # one repair pass at a time
+        self._hole_attempts: Dict[tuple, int] = {}
         self._scope = (
             instrument.scope("scrub") if instrument is not None else None
         )
@@ -121,8 +132,8 @@ class Scrubber:
                  wait: bool = True) -> dict:
         """One scrub pass: verify up to ``budget`` volumes (None = the
         configured per-tick budget; 0 = the whole disk, the on-demand
-        shape) and quarantine what fails.  Returns the pass's stats (the
-        reference's keys; with no peers no repair is attempted).
+        shape), quarantine what fails, then attempt peer repair of every
+        open hole.  Returns the pass's stats.
 
         ``wait=False`` (the mediator's shape) returns ``{"skipped":
         True}`` instead of blocking when another sweep — e.g. an
@@ -157,12 +168,86 @@ class Scrubber:
                         )
         finally:
             self._lock.release()
-        # With no peers the reference's repair pass returns at once:
-        # the synchronous shape adds nothing, the mediator's reports
-        # that no background pass started.
-        if repair and not wait:
-            stats["repair_async"] = False
+        # Repair OUTSIDE the sweep lock — and, on the mediator's
+        # non-blocking (wait=False) path, on a BACKGROUND thread: peer
+        # fetches can block up to the RPC timeout on an unreachable
+        # replica, and the maintenance tick must never stall behind
+        # them (flush/snapshot/cleanup would back up for minutes).
+        # On-demand callers (admin endpoint) keep the synchronous shape
+        # so the HTTP response carries the repair outcome.
+        if repair:
+            if wait:
+                # Serialize with any in-flight background pass: two
+                # passes walking the same holes would double-rewrite
+                # blocks cluster-wide and race _hole_attempts.
+                with self._repair_lock:
+                    self._repair_holes(stats)
+            else:
+                stats["repair_async"] = self._spawn_repair()
         self._count("volumes_checked", stats["checked"])
         self._count("corruptions_found", stats["corrupt"])
         self._count("sweeps")
         return stats
+
+    def _spawn_repair(self) -> bool:
+        """Start one background repair pass; False when no peers exist
+        or a previous pass is still running (it will pick up any new
+        holes next tick)."""
+        if not self.peers:
+            return False
+        if not self._repair_lock.acquire(blocking=False):
+            return False
+        def run():
+            try:
+                self._repair_holes({"repair_attempts": 0, "repaired": 0})
+            except Exception:  # noqa: BLE001 — background loop must survive
+                _LOG.exception("background repair pass failed")
+            finally:
+                self._repair_lock.release()
+        threading.Thread(target=run, daemon=True,
+                         name="m3-scrub-repair").start()
+        return True
+
+    def _repair_holes(self, stats: dict) -> None:
+        """Re-fetch every quarantined (ns, shard, block) that has no
+        intact local volume from the replica set.  Stateless worklist:
+        the quarantine inventory names the holes, the presence of a
+        local fileset marks one healed — no extra bookkeeping files.
+        Per-hole attempts are capped (REPAIR_ATTEMPT_CAP) so a hole no
+        replica can fill stops generating RPC traffic."""
+        if not self.peers:
+            return
+        holes = set()
+        for entry in quar.list_quarantined(self.db.opts.root):
+            if entry.get("kind") != "fileset" or entry.get("label") != "data":
+                continue  # snapshot filesets re-converge via the WAL/peers
+            name = entry.get("namespace")
+            if name not in self.db.namespaces:
+                continue
+            holes.add((name, int(entry["shard"]), int(entry["block_start"])))
+        from m3_tpu_torch.storage.repair import repair_shard_block
+
+        for name, shard_id, bs in sorted(holes):
+            if bs in dict(self.db.list_block_filesets(name, shard_id)):
+                self._hole_attempts.pop((name, shard_id, bs), None)
+                continue  # healed (repair, re-flush, or intact lower volume)
+            attempts = self._hole_attempts.get((name, shard_id, bs), 0)
+            if attempts >= self.REPAIR_ATTEMPT_CAP:
+                continue  # exhausted: operator restore / restart re-arms
+            self._hole_attempts[(name, shard_id, bs)] = attempts + 1
+            stats["repair_attempts"] += 1
+            try:
+                repair_shard_block([self.db] + self.peers, name, shard_id, bs)
+            except Exception:  # noqa: BLE001 — scrub loop must survive
+                _LOG.exception(
+                    "peer repair failed ns=%s shard=%d block=%d",
+                    name, shard_id, bs,
+                )
+                continue
+            if bs in dict(self.db.list_block_filesets(name, shard_id)):
+                stats["repaired"] += 1
+                self._hole_attempts.pop((name, shard_id, bs), None)
+                _LOG.info("peer repair healed ns=%s shard=%d block=%d",
+                          name, shard_id, bs)
+        self._count("repair_attempts", stats["repair_attempts"])
+        self._count("repairs_completed", stats["repaired"])

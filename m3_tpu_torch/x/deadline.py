@@ -1,7 +1,5 @@
 """End-to-end query deadlines + cooperative cancellation: the
-counterpart of ``m3_tpu/x/deadline.py``, copied without its wire forms
-(socket timeouts, the remaining budget in milliseconds, the wire-error
-decoder), since the port has no wire protocol yet.
+counterpart of ``m3_tpu/x/deadline.py``.
 
 * :class:`Deadline`: an absolute expiry (monotonic clock) and a
   cooperative cancel flag.  ``remaining()`` is the budget left;
@@ -11,6 +9,13 @@ decoder), since the port has no wire protocol yet.
   current thread of execution (``contextvars``); ``current()`` reads
   it, so a storage's ``fetch_raw`` can consult it with its signature
   unchanged.  Worker threads do not inherit the binding.
+* Wire form: the *remaining* budget travels as milliseconds in the
+  RPC_REQ_DL frames of ``server/rpc.py`` (relative, not absolute: peers'
+  clocks need not agree), so the server stops work for a call whose
+  client already gave up; ``socket_timeout`` derives per-call socket
+  timeouts from the budget; ``decode_wire_error`` turns a typed overload
+  error that crossed a wire back into its class, with the reference's
+  messages.
 * Query annotations: a bound deadline accumulates ``warnings`` and
   per-phase timings (``phase("fetch")``).
 
@@ -29,7 +34,8 @@ from typing import Callable, Dict, List
 
 __all__ = [
     "Deadline", "DeadlineExceeded", "QueryCancelled", "bind", "current",
-    "check_current", "counters", "reset_counters",
+    "check_current", "socket_timeout", "remaining_ms", "counters",
+    "reset_counters", "decode_wire_error",
 ]
 
 _lock = threading.Lock()
@@ -148,6 +154,22 @@ class Deadline:
         return (QueryCancelled(msg) if self._cancelled
                 else DeadlineExceeded(msg))
 
+    def socket_timeout(self, cap: float | None = None) -> float:
+        """Per-call socket timeout from the remaining budget, optionally
+        capped (a generous legacy constant must never EXTEND a
+        deadline).  Raises instead of returning a non-positive
+        timeout."""
+        rem = self.remaining()
+        if self._cancelled or rem <= 0.0:
+            self.check("wire call")
+        return rem if cap is None else min(rem, cap)
+
+    # -- wire form ---------------------------------------------------------
+
+    def remaining_ms(self) -> int:
+        """Relative budget for the wire (ms, floor 0)."""
+        return max(0, int(self.remaining() * 1000))
+
     # -- annotations -------------------------------------------------------
 
     def add_warning(self, msg: str) -> None:
@@ -165,6 +187,25 @@ class Deadline:
             dt = self._clock() - t0
             with self._mu:
                 self.phases[name] = self.phases.get(name, 0.0) + dt
+
+
+# -- wire error decoding ----------------------------------------------------
+
+
+def decode_wire_error(msg: str) -> Exception | None:
+    """Typed OVERLOAD errors crossing a wire error payload
+    (``TypeName: message``) → the exception to re-raise client-side,
+    or None when the message is not an overload error, so a remote limit
+    trip stays a 429 and a remote deadline trip a 504.  The returned
+    ``DeadlineExceeded`` is constructed bare (uncounted): the peer that
+    detected the trip already counted it."""
+    if msg.startswith("QueryLimitExceeded:"):
+        from m3_tpu_torch.storage.limits import QueryLimitExceeded
+
+        return QueryLimitExceeded.from_message(msg)
+    if msg.startswith(("DeadlineExceeded:", "QueryCancelled:")):
+        return DeadlineExceeded(f"remote peer: {msg}")
+    return None
 
 
 # -- context propagation ----------------------------------------------------
@@ -196,3 +237,21 @@ def check_current(what: str = "query") -> None:
     dl = _current.get()
     if dl is not None:
         dl.check(what)
+
+
+def socket_timeout(cap: float) -> float:
+    """Per-call socket timeout for the bound deadline: the remaining
+    budget capped at ``cap``, or ``cap`` itself when no deadline is
+    bound.  Raises ``DeadlineExceeded`` when the budget is already
+    spent — wire clients call this BEFORE dialing/sending."""
+    dl = _current.get()
+    if dl is None:
+        return cap
+    return dl.socket_timeout(cap)
+
+
+def remaining_ms(default: int = -1) -> int:
+    """Wire form of the bound deadline's budget; ``default`` (-1 = no
+    deadline) when none is bound."""
+    dl = _current.get()
+    return default if dl is None else dl.remaining_ms()

@@ -2,8 +2,10 @@
 
 One YAML text through both loaders gives equal ``dataclasses.asdict``
 (env expansion included); invalid configs raise the same ``ConfigError``
-text; JSON text loads to the same config; and ``run_node`` refuses, by
-name, every section whose subsystem the port does not have.
+text; JSON text loads to the same config; ``run_node`` refuses, by
+name, every section whose subsystem the port does not have, and builds
+the replicated cluster's sections (RPC, peers, remote KV, instance id,
+admin port).
 """
 
 import dataclasses
@@ -122,11 +124,6 @@ def test_parse_duration_equal(v):
 
 
 UNPORTED = [
-    ("db: {rpc_listen_port: 0}", "m3_tpu/server/rpc.py"),
-    ("db: {peers: ['127.0.0.1:9']}", "m3_tpu/storage/repair.py"),
-    ("db: {kv_endpoint: '127.0.0.1:9'}", "m3_tpu/cluster/kv_remote.py"),
-    ("db: {instance_id: i0}", "m3_tpu/cluster/topology.py"),
-    ("coordinator: {admin_listen_port: 0}", "m3_tpu/server/admin_api.py"),
     ("coordinator: {carbon_listen_port: 0}", "m3_tpu/metrics/carbon.py"),
     ("query: {listen_port: 0}", "m3_tpu/query/remote.py"),
     ("query: {remotes: ['127.0.0.1:9']}", "m3_tpu/query/fanout.py"),
@@ -146,6 +143,31 @@ def test_unported_sections_refuse(tmp_path, text, module):
     with pytest.raises(tc.ConfigError, match=module.replace(".", r"\.")):
         tasm.run_node(cfg, device="cpu")
     assert not any(tmp_path.iterdir())  # refused before anything was built
+
+
+# the replicated cluster's sections, refused until the RPC data plane was
+# ported, and the part of the node each one builds
+CLUSTER_SECTIONS = [
+    ("db: {rpc_listen_port: 0}", "rpc_server"),
+    ("db: {peers: ['127.0.0.1:9']}", "peer_handles"),
+    ("db: {kv_endpoint: '127.0.0.1:9'}", "kv"),
+    ("db: {instance_id: i0}", "migrator"),
+    ("coordinator: {admin_listen_port: 0}", "admin_server"),
+]
+
+
+@pytest.mark.parametrize("text,part", CLUSTER_SECTIONS)
+def test_cluster_sections_are_accepted(tmp_path, text, part):
+    cfg = tc.load_config(f"{text}\nmediator: {{enabled: false}}\n")
+    cfg.db.root = str(tmp_path)
+    tasm.refuse_unported(cfg)
+    asm = tasm.run_node(cfg, device="cpu")
+    try:
+        assert getattr(asm, part)
+        assert (asm.rpc_port is not None) == (part == "rpc_server")
+        assert (asm.admin_port is not None) == (part == "admin_server")
+    finally:
+        asm.close()
 
 
 def test_arena_ingest_auto_is_accepted():

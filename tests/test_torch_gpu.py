@@ -1089,3 +1089,72 @@ def test_sharded_query_on_card_equals_cpu():
     assert dg.launches - before == 4
     cpu = sq.sharded_decode_rate_hq(mesh.make_mesh(4, 1, ["cpu"] * 4), *args)
     assert _same_arrays([x.cpu().numpy() for x in card], [x.numpy() for x in cpu])
+
+
+def _cluster_on(devs, root, S, K, down_after):
+    """Three dbnodes (``Database`` + ``DbNodeRpcServer`` on loopback) on
+    ``devs``, a placement of 64 shards at RF 3, a session at MAJORITY
+    writing K scrapes of S series with node C down after ``down_after``,
+    a flush, then ``repair_namespace`` over RPC.  Returns (each node's
+    files, the session's reads, the repair report)."""
+    import hashlib
+
+    from m3_tpu_torch.client.session import ReplicatedSession
+    from m3_tpu_torch.cluster.placement import Instance, initial_placement
+    from m3_tpu_torch.server.rpc import RemoteDatabase, serve_rpc_background
+    from m3_tpu_torch.storage.database import Database, DatabaseOptions, NamespaceOptions
+    from m3_tpu_torch.storage.repair import repair_namespace
+
+    block = 2 * 3600 * SEC
+    t0 = START // block * block
+    dbs = {n: Database(DatabaseOptions(root=str(root / n)), {"default": NamespaceOptions(
+        num_shards=64, slot_capacity=1 << 10, sample_capacity=1 << 12)}, device=d)
+        for n, d in zip("ABC", devs)}
+    srvs = {n: serve_rpc_background(db) for n, db in dbs.items()}
+    remotes = {n: RemoteDatabase(("127.0.0.1", s.port), timeout_s=120.0) for n, s in srvs.items()}
+    try:
+        p = initial_placement([Instance(n, isolation_group=n) for n in dbs], 64, 3)
+        sess = ReplicatedSession(p, dict(remotes))
+        rng = np.random.default_rng(21)
+        ids = [b"gpu%05d" % i for i in range(S)]
+        vals = np.round(rng.normal(50, 5, (K, S)), 2)
+        for k in range(K):
+            if k == down_after:
+                srvs["C"].shutdown()
+                srvs["C"].server_close()
+                remotes["C"].close()
+            ts = np.full(S, t0 + k * 10 * SEC, np.int64)
+            assert sess.write_batch("default", ids, ts, vals[k],
+                                    now_nanos=t0 + (k + 1) * 10 * SEC) == 0
+        srvs["C"] = serve_rpc_background(dbs["C"], port=srvs["C"].port)
+        for db in dbs.values():
+            db.tick(t0 + block + 11 * 60 * SEC)
+        rep = repair_namespace(list(remotes.values()), "default", num_shards=64)
+        assert repair_namespace(list(remotes.values()), "default", num_shards=64).converged
+        reads = sess.fetch_batch("default", ids, t0, t0 + block)
+        assert all(len(r) == K for r in reads)
+    finally:
+        for n in dbs:
+            remotes[n].close()
+            srvs[n].shutdown()
+            srvs[n].server_close()
+            dbs[n].close()
+    files = {n: {str(q.relative_to(root / n)): hashlib.sha256(q.read_bytes()).hexdigest()
+                 for q in sorted((root / n / "data").rglob("*")) if q.is_file()}
+             for n in dbs}
+    return files, [[(t, float(v).hex()) for t, v in r] for r in reads], dict(rep)
+
+
+@pytest.mark.gpu
+def test_three_node_cluster_on_card_equals_cpu(tmp_path):
+    """The replicated cluster at 2^12 series: the nodes on the card (on
+    three distinct cards where the machine has them) and on the CPU write
+    sha256-equal files and answer equal reads; repair converges both."""
+    dev = _cuda_or_skip()
+    n = torch.cuda.device_count()
+    devs = [torch.device("cuda", k) for k in range(3)] if n >= 3 else [dev] * 3
+    S, K = 1 << 12, 6
+    card = _cluster_on(devs, tmp_path / "card", S, K, down_after=4)
+    cpu = _cluster_on([torch.device("cpu")] * 3, tmp_path / "cpu", S, K, down_after=4)
+    assert card == cpu
+    assert card[2]["series_diff"] == S and card[2]["repaired_replicas"] == 64

@@ -33,7 +33,13 @@ def test_every_module_imports_with_jax_blocked():
               # the mesh: topology, replicas, the sharded step, codec and query
               "parallel", "parallel.mesh", "parallel.replication", "parallel.sharded_agg",
               "parallel.sharded_encode", "parallel.sharded_decode",
-              "parallel.sharded_query"):
+              "parallel.sharded_query",
+              # the replicated storage cluster: RPC, session, KV service,
+              # topology, namespaces, runtime options, repair, migration, admin
+              "server.rpc", "client", "client.session", "cluster.kv_remote",
+              "cluster.topology", "cluster.namespace_registry",
+              "core.runtime_options", "storage.repair", "storage.migration",
+              "server.admin_api"):
         assert f"m3_tpu_torch.{m}" in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

@@ -160,13 +160,41 @@ def test_scrubber_findings_on_a_corrupt_volume_match(pair):
     assert reads["torch"] == reads["jax"]
 
 
-def test_scrubber_refuses_peers(tmp_path):
-    db, _, _ = _db("torch", tmp_path)
-    try:
-        with pytest.raises(NotImplementedError, match="storage/repair.py"):
-            tscrub.Scrubber(db, peers=[object()])
-    finally:
-        db.close()
+class _RefusingPeer:
+    """A replica that refuses every block-surface call (down, or the
+    placement moved the shard off it)."""
+
+    def __init__(self, err):
+        self.err = err
+
+    def __getattr__(self, name):
+        def refuse(*a, **k):
+            raise self.err
+        return refuse
+
+
+def test_scrubber_refuses_peers(pair):
+    """Peers that refuse every call leave the quarantined hole open: the
+    sweep completes, counts its repair attempts up to the cap, and the
+    hole stays, in both packages alike."""
+    sides = pair("refused")
+    got = {}
+    for side, (db, reg, scope) in sides.items():
+        doc_mod, scrub, dbm = (jdoc, jscrub, jdb) if side == "jax" else (tdoc, tscrub, tdb)
+        _write(db, doc_mod, 0, 20)
+        db.tick(START + BLOCK + 11 * MIN)
+        _flip_one_byte(db.opts.root)
+        s = scrub.Scrubber(db, instrument=scope, peers=[
+            _RefusingPeer(ConnectionError("down")),
+            _RefusingPeer(dbm.ShardNotOwnedError("default", 0))])
+        runs = [s.run_once(budget=0) for _ in range(scrub.Scrubber.REPAIR_ATTEMPT_CAP + 1)]
+        got[side] = (runs, _counters(reg, ("m3tpu_scrub",)),
+                     len(db.quarantine_inventory()))
+    assert got["torch"] == got["jax"]
+    runs, counters, holes = got["torch"]
+    assert runs[0]["corrupt"] == 1 and runs[0]["repair_attempts"] == 1
+    assert runs[-1]["repair_attempts"] == 0 and not any(r["repaired"] for r in runs)
+    assert holes == 1
 
 
 def _admission_run(adm_mod, dl_mod):
