@@ -304,6 +304,47 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bootstrap seconds, the migration's blocks and seconds, peak memory,
    launches.
 
+22. the device boundary and the control plane, in a lane (below) whose
+   caching allocator runs in expandable segments: (a) a ``ShardBuffer``
+   whose first tensor alone is larger than the card, with no budget: ``DeviceOOM`` caused by torch's
+   OutOfMemoryError, counted on ``storage.buffer_append`` and opening its
+   breaker, ``memory_allocated()`` unchanged; (b) the six arenas at 10^6
+   slots (both layouts), the buffer at 100,000 series and the decoder's
+   control table: one byte under its footprint ``device.mem_budget``
+   refuses each before the card allocates, at the footprint each builds
+   and ``memory_allocated()`` grows by the footprint to the byte; the
+   encode and decode passes at config #2's 100,000 x 720 under
+   transient reservations that cover their measured peaks (ratios
+   printed); then the phase's main path, every launch counted: one
+   scrape of 10^6 counters and one of 10^6 gauges through the
+   ``arena.ingest`` stage of the f64 arenas (kernels #3 and #4 held
+   against their plain versions), consumed and checked; (c) a node on
+   the card (``run_node``, config #2's 100,000 gauges as JSON writes):
+   ``device.dispatch`` armed through ``POST /api/v1/debug/faults``, each
+   write of a scrape refused 503 and none acknowledged, the stage's
+   breaker open on ``/health``; disarmed, after ``breaker_reset``, a
+   scrape acknowledged and the breaker closed; ``/health``'s
+   ``device.membudget`` equal to the ledger; the flush (kernel #1 held
+   against its plain version) and every volume decoded on the card
+   (kernel #2, held likewise) equal to exactly the acknowledged scrapes;
+   (d) the same node configuration with ``selfmon`` and ``controller``
+   on and a 1 s mediator tick, taking config #2 scrapes: a
+   ``query.fetch`` latency fault past 1 s burns the query SLO, the
+   controller sheds ``query_slots`` to its floor and, disarmed, relaxes
+   them to their baseline; ``/health`` serves ``slo`` and ``controller``
+   (no ``device_fallback``); the self-monitoring series, on the card,
+   answer PromQL; (e) ``/debug/dump`` is a zip of the reference's
+   members.  Each part's wall, the footprints, the transient ratios.
+
+Order.  Phases 16, 18-19 and 22 run in lanes: spawned processes of their
+own, started with the script (phase 18's request builders start in its
+lane then), released after phase 11 and joined after phase 17.  The main
+process meanwhile runs phases 12-15, 20 and 17, in that order; phase 21
+runs last, alone on the card.  Each lane's wall, the main process's wait
+for it and its peak host memory are printed, and each kernel record's
+``shared_card`` names the phases that ran beside a phase of another
+process: the kernel times taken in them were taken on a shared card.
+
 Each kernel record carries ``launches`` (phase 3's pass or phase 7's
 drive), ``query_launches`` (phase 13), ``storage_launches`` (phase
 14's write, flush, read and restart: kernel #1 once per shard per warm
@@ -316,7 +357,11 @@ encode, kernel #2 in its check), and ``mesh_launches`` (phase 20's
 main paths: kernels #3 and #4 in (a)'s f64 step, #1 in (c)'s encode,
 #2 in (c)'s decode and (d)'s query), and ``cluster_launches`` (phase
 21's (a)-(c): kernel #1 once per shard of A's and B's warm flushes) and
-``cluster_check_launches`` (its volume check (d): kernel #2).  The last three lines are a JSON line of kernel records, the card's name
+``cluster_check_launches`` (its volume check (d): kernel #2), and
+``device_launches`` (phase 22's main path: #3 and #4 in the f64 ingest,
+#1 in (c)'s flush, #2 in (c)'s volume check); ``shared_card`` names the
+phases whose kernel times were taken while phase 22 ran beside them.
+The last three lines are a JSON line of kernel records, the card's name
 and power limit, and the result line ``{"ok": true, "device": {...}}``.
 Exact comparisons throughout, except where a phase names its tolerance.
 """
@@ -506,10 +551,12 @@ def profiled(fn, tries: int = 3) -> dict:
     times its copies with CUDA events and adds them to
     ``busy_no_htod_s``.  A trace with no device events at all is taken
     again, ``fn`` included, up to ``tries`` times."""
+    import os
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    trace = ROOT / "build" / "profile_trace.json"
+    trace = ROOT / "build" / f"profile_trace.{os.getpid()}.json"  # one a process
     trace.parent.mkdir(parents=True, exist_ok=True)
     for attempt in range(tries):
         torch.cuda.synchronize()
@@ -3202,33 +3249,54 @@ def forwarding_phase(seed: int, n: int, dev, card: str) -> tuple:
     return t, checks
 
 
-def downsample_phases(kernels: list, seed: int, agg_series: int, dev, card: str) -> None:
-    """Phases 16-17, then each kernel record's ``downsample_launches`` (its
-    launches in the two phases) and its checks there."""
+def downsample_lane(seed: int, card: str) -> dict:
+    """Phase 16 in a lane of its own: its times, and each kernel's partial
+    record, ``downsample_launches`` (its launches there) and its checks."""
     import torch
 
+    torch.set_num_threads(LANE_THREADS)
+    lane_wait()
     t0 = time.perf_counter()
-    ds_t, ds_launched, ds_records = downsampler_phase(seed, dev, card)
+    ds_t, ds_launched, ds_records = downsampler_phase(seed, torch.device("cuda"), card)
     log(f"phase16 done in {time.perf_counter() - t0:.1f} s")
-    torch.cuda.empty_cache()
+    recs = []
+    for name in KERNEL_NAMES:
+        rec = {"name": name, "max_abs_err": 0, **ds_records.get(name, {}),
+               "downsample_launches": ds_launched[name]}
+        recs.append(rec)
+    return {"records": recs, "times": ds_t}
+
+
+def forwarding_phase_main(seed: int, agg_series: int, dev, card: str) -> tuple:
+    """Phase 17 with every launch counted: (times, launches, each
+    kernel's partial record: its launches and its checks)."""
     zero_launches()
     t0 = time.perf_counter()
     fwd_t, fwd_checks = forwarding_phase(seed, agg_series, dev, card)
     fwd_launched = read_launches()
     log(f"phase17 done in {time.perf_counter() - t0:.1f} s; launches {fwd_launched}")
-    for k in kernels:
-        name = k["name"]
-        k["downsample_launches"] = ds_launched[name] + fwd_launched[name]
-        rec = dict(ds_records.get(name, {}))
-        err = rec.pop("max_abs_err", 0)
+    recs = []
+    for name in KERNEL_NAMES:
+        rec = {"name": name, "max_abs_err": 0}
         if name in fwd_checks:
-            err = max(err, fwd_checks[name].err)
+            rec["max_abs_err"] = fwd_checks[name].err
             rec["downsample_checked_calls"] = fwd_checks[name].calls
-        k["max_abs_err"] = max(k.get("max_abs_err", 0), err)
-        k.update(rec)
+        recs.append(rec)
+    return fwd_t, fwd_launched, recs
+
+
+def downsample_records(kernels: list, ds: dict, fwd: tuple, card: str) -> None:
+    """Phases 16 and 17 into the kernel records: ``downsample_launches``
+    (the two phases' launches, each above 0) and their checks."""
+    fwd_t, fwd_launched, fwd_recs = fwd
+    merge_records(kernels, ds["records"])
+    merge_records(kernels, fwd_recs)
+    for k in kernels:
+        k["downsample_launches"] += fwd_launched[k["name"]]
     assert all(k["downsample_launches"] > 0 for k in kernels), \
         {k["name"]: k["downsample_launches"] for k in kernels}
-    log(f"phase17 [{card}] downsample path: " + json.dumps({"phase16": ds_t, "phase17": fwd_t}))
+    log(f"phase17 [{card}] downsample path: " + json.dumps({"phase16": ds["times"],
+                                                           "phase17": fwd_t}))
 
 
 # ---- phase 18: the node (config -> assembly -> mediator -> HTTP) ---------
@@ -5565,6 +5633,658 @@ def cluster_parts(seed: int, dev, card: str, repairs: dict) -> tuple:
     return t, launched, check_launched, place
 
 
+# ---- phase 22: the device boundary and the control plane -----------------
+
+DEV_SLOTS = 1_000_000  # slots an arena type (BASELINE configs #3-#4's width)
+DEV_WINDOWS = 2
+DEV_TIMER_SAMPLES = 1 << 22  # timer samples a window: four a timer
+DEV_BUFFER_SERIES = 100_000  # config #2's width
+DEV_BUFFER_SLOTS = 1 << 17  # slots of the buffer: room for the 100,000 series
+DEV_BUFFER_SAMPLES = 1 << 21  # samples a window: 20 scrapes of the 100,000
+DEV_CODEC_SERIES, DEV_CODEC_POINTS = 100_000, 720  # config #2's codec pass
+CONTROL_SERIES = 100_000  # the nodes of (c) and (d): config #2's gauges
+CONTROL_BATCH = 10_000  # samples a JSON write
+CONTROL_ACKED = (0, 1, 3)  # (c)'s scrapes: 0 and 1 before the fault, 3 after
+CONTROL_REFUSED = 2  # (c)'s scrape whose first writes meet the armed device.dispatch
+CONTROL_FAILURES = 3  # (c)'s device.breaker_failures: the writes refused, to open it
+CONTROL_QUERY_DELAY_MS = 1100  # (d)'s query.fetch latency fault: past 1.0 s
+CONTROL_WAIT_S = 120.0  # the longest (d) waits for the controller to act
+DEBUG_MEMBERS = ["threads.txt", "cpu.txt", "heap.txt", "host.json"]  # the reference's
+# (d)'s query SLO: the built-in rule's ratio on a short ladder, so it burns
+# and clears within the phase.  The latency fault slows the evaluator's own
+# six fetches too (1.1 s each, as in the reference), so the evaluation gets
+# a 30 s deadline and the windows hold several of its ~7 s passes.
+CONTROL_RULES = [
+    {"name": "query-latency", "objective": 0.99,
+     "ratio": ('(sum(rate(m3tpu_query_seconds_count[{window}])) - '
+               'sum(rate(m3tpu_query_seconds_bucket{le="1.0"}[{window}]))) / '
+               'clamp_min(sum(rate(m3tpu_query_seconds_count[{window}])), 0.001)'),
+     "windows": [{"long": "40s", "short": "20s", "factor": 14.4}]}]
+
+
+def oom_through_a_stage(dev) -> dict:
+    """(a): a ``ShardBuffer`` whose first tensor alone is larger than the
+    card, with no budget set: one allocation that cannot succeed.  It
+    must raise ``DeviceOOM`` caused by torch's OutOfMemoryError, counted
+    on ``storage.buffer_append`` and opening its breaker (threshold 1
+    here), with ``memory_allocated()`` back where it was."""
+    import torch
+
+    from m3_tpu_torch.storage.buffer import ShardBuffer
+    from m3_tpu_torch.x import breaker, devguard, membudget
+
+    _free, total = torch.cuda.mem_get_info(dev)
+    samples = total // (4 * 2) + 1  # the (2, S) int32 slot lane alone > the card
+    devguard.configure(failures=1, reset_s=3600.0)
+    before = torch.cuda.memory_allocated(dev)
+    used = membudget.used()
+    try:
+        ShardBuffer(BLOCK, 2, samples, DEV_BUFFER_SLOTS, device=dev)
+    except devguard.DeviceOOM as e:
+        err = e
+    else:
+        raise AssertionError("a buffer larger than the card was built")
+    assert isinstance(err.__cause__, torch.cuda.OutOfMemoryError), repr(err.__cause__)
+    assert torch.cuda.memory_allocated(dev) == before
+    assert membudget.used() == used
+    doc = devguard.status()["stages"]["storage.buffer_append"]
+    assert doc == {"errors": {"oom": 1}, "breaker": "open"}, doc
+    breaker.reset_registry()
+    devguard.reset_stages()
+    devguard.configure(failures=5, reset_s=10.0)
+    return {"card_total_bytes": int(total), "asked_bytes": int(4 * 2 * samples),
+            "error": str(err)[:120]}
+
+
+def resident_checks(dev) -> dict:
+    """(b): each resident structure at full width — the six arenas at
+    10^6 slots, the buffer at 100,000 series, the decoder's control
+    table: one byte below its footprint the budget refuses it before the
+    card allocates anything; at the footprint it builds, and
+    ``memory_allocated()`` grows by the footprint to the byte."""
+    import gc
+
+    import torch
+
+    from m3_tpu_torch.aggregator import arena, packed
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.storage.buffer import ShardBuffer
+    from m3_tpu_torch.x import membudget as mb
+
+    W, C, SC = DEV_WINDOWS, DEV_SLOTS, DEV_TIMER_SAMPLES
+    builds = [
+        ("packed counter", lambda: packed.PackedCounterArena(W, C, device=dev),
+         mb.counter_arena_bytes("packed", W, C)),
+        ("packed gauge", lambda: packed.PackedGaugeArena(W, C, device=dev),
+         mb.gauge_arena_bytes("packed", W, C)),
+        ("packed timer", lambda: packed.PackedTimerArena(W, C, SC, device=dev),
+         mb.timer_arena_bytes("packed", W, C, SC)),
+        ("f64 counter", lambda: arena.CounterArena(W, C, device=dev),
+         mb.counter_arena_bytes("f64", W, C)),
+        ("f64 gauge", lambda: arena.GaugeArena(W, C, device=dev),
+         mb.gauge_arena_bytes("f64", W, C)),
+        ("f64 timer", lambda: arena.TimerArena(W, C, SC, device=dev),
+         mb.timer_arena_bytes("f64", W, C, SC)),
+        ("buffer", lambda: ShardBuffer(BLOCK, 2, DEV_BUFFER_SAMPLES, DEV_BUFFER_SLOTS,
+                                       device=dev),
+         mb.buffer_bytes(2, DEV_BUFFER_SAMPLES)),
+    ]
+    out = {}
+    for name, build, need in builds:
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        base = mb.used()
+        before = torch.cuda.memory_allocated(dev)
+        mb.set_budget(base + need - 1)
+        try:
+            build()
+        except mb.DeviceBudgetExceeded:
+            pass
+        else:
+            raise AssertionError(f"{name}: built one byte over the budget")
+        assert torch.cuda.memory_allocated(dev) == before, name
+        mb.set_budget(base + need)
+        obj = build()
+        torch.cuda.synchronize(dev)
+        delta = torch.cuda.memory_allocated(dev) - before
+        assert delta == need == obj._mem.nbytes, (name, delta, need)
+        out[name] = need
+        del obj
+    mb.set_budget(0)
+    gc.collect()
+    before = torch.cuda.memory_allocated(dev)
+    mt.value_ctrl_table(dev)
+    delta = torch.cuda.memory_allocated(dev) - before
+    need = mt._CTRL_TBL_RESERVED[dev].nbytes
+    assert delta == need == 1 << 20, (delta, need)
+    out["decode.ctrl_table"] = need
+    return out
+
+
+def transient_checks(seed: int, dev) -> dict:
+    """(b): the encode and decode passes at config #2's S x T from host
+    arrays: each pass's device peak over what was allocated before it
+    (``max_memory_allocated``) is covered by its transient reservation;
+    the ratio is printed."""
+    import torch
+
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.x import membudget as mb
+
+    S, T = DEV_CODEC_SERIES, DEV_CODEC_POINTS
+    W = max(16, T * 40 // 64 + 8)
+    ts, vals, starts = make_batch(seed + 22, S, T)
+    valid = np.ones((S, T), bool)
+
+    def peak_of(fn):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, torch.cuda.max_memory_allocated(dev) - base
+
+    t0 = time.perf_counter()
+    enc, enc_peak = peak_of(lambda: mt.encode_batch_device(
+        ts, vals.view(np.int64), starts, valid, out_words=W, device=dev))
+    enc_res = mb.encode_lane_bytes(S, T, W)
+    fb = enc["fallback"].cpu().numpy()
+    assert fb.mean() < 0.05, fb.mean()  # phase 3's bound on this mix
+    streams = mt.finalize_streams(enc["words"].cpu().numpy().view(np.uint64),
+                                  enc["total_bits"].cpu().numpy())
+    del enc
+    words, nbits = mt.pack_streams(streams)
+    dec, dec_peak = peak_of(lambda: mt.decode_batch_device(
+        torch.from_numpy(words.view(np.int64)), torch.from_numpy(nbits), T, device=dev))
+    dec_res = mb.decode_lane_bytes(S, words.shape[1], T)
+    assert np.array_equal(dec[0].cpu().numpy()[~fb], ts[~fb]), "decoded timestamps"
+    del dec
+    out = {"encode_reserved": enc_res, "encode_peak": int(enc_peak),
+           "encode_ratio": enc_res / enc_peak, "decode_reserved": dec_res,
+           "decode_peak": int(dec_peak), "decode_ratio": dec_res / dec_peak,
+           "seconds": time.perf_counter() - t0}
+    assert enc_res >= enc_peak and dec_res >= dec_peak, out
+    return out
+
+
+def f64_ingest_path(seed: int, dev) -> dict:
+    """The ``arena.ingest`` stage on the f64 layout at full width: one
+    scrape of 10^6 counters and one of 10^6 gauges into 10^6-slot arenas
+    (kernels #3 and #4, each launch held bit for bit against its plain
+    version on CPU copies), then each window's consume."""
+    from m3_tpu_torch.aggregator import arena
+    from m3_tpu_torch.parallel import segment_ingest as si
+    from m3_tpu_torch.x import devguard
+
+    rng = np.random.default_rng(seed + 220)
+    C = DEV_SLOTS
+    slots = rng.permutation(C).astype(np.int32)
+    windows = np.zeros(C, np.int32)
+    times = np.full(C, 1_700_000_000 * SEC, np.int64)
+    cv = rng.integers(0, 1000, C)
+    gv = np.round(rng.normal(50, 9, C), 2)
+    c = arena.CounterArena(DEV_WINDOWS, C, device=dev)
+    g = arena.GaugeArena(DEV_WINDOWS, C, device=dev)
+    with IntoCheck("segment_ingest_into", si.segment_ingest_into_plain) as c3, \
+            IntoCheck("segment_minmax_into", si.segment_minmax_into_plain) as c4:
+        c.ingest(windows, slots, cv, times)
+        g.ingest(windows, slots, gv, times)
+    # one sample a slot: SUM, MIN and MAX are the sample, COUNT is 1
+    for a, v in ((c, cv.astype(np.float64)), (g, gv)):
+        lanes, cnt = (x.cpu().numpy() for x in a.consume(0))
+        want = np.empty(C)
+        want[slots] = v
+        assert (cnt == 1).all() and np.array_equal(lanes[:, 5], want)
+        assert np.array_equal(lanes[:, 1], want) and np.array_equal(lanes[:, 2], want)
+    calls = devguard.counters()
+    # two allocations a type, then the two scrapes
+    assert calls["device.arena.ingest.calls"] >= 4 and calls["device.arena.consume.calls"] >= 2
+    return {"into_calls": c3.calls + c4.calls,
+            "max_abs_err": {"segment_ingest": c3.err, "segment_minmax": c4.err}}
+
+
+class ControlNode:
+    """One port node on the card for (c)-(e) and its HTTP client."""
+
+    def __init__(self, name: str, extra: dict, dev):
+        from m3_tpu_torch.server import assembly
+        from m3_tpu_torch.x import breaker, devguard
+
+        # the stage breakers and counters start fresh, as in a node's own
+        # process: a breaker keeps the threshold it was created with, and
+        # (a)-(b) created the stages' breakers before this node's config
+        breaker.reset_registry()
+        devguard.reset_stages()
+        self.root = store_root(name)
+        cfg = {"db": {"root": str(self.root)},
+               "coordinator": {"listen_port": 0},
+               "query": {"max_concurrent": 8, "max_queue": 64},
+               "device": {"mem_budget": "70G", "breaker_failures": CONTROL_FAILURES,
+                          "breaker_reset": "1s"}}
+        cfg.update(extra)
+        self.asm = assembly.run_node(json.dumps(cfg) + "\n", device=dev)
+        self.acked = 0  # samples
+        self.acked_requests = 0
+
+    def call(self, path: str, body: bytes | None = None, method: str = "GET"):
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(f"http://127.0.0.1:{self.asm.port}{path}",
+                                     data=body, method=method)
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    def health(self) -> dict:
+        return json.loads(self.call("/health")[1])
+
+    def faults(self, body: dict) -> None:
+        st, out = self.call("/api/v1/debug/faults", json.dumps(body).encode(), "POST")
+        assert st == 200, out
+
+    def scrape(self, t_nanos: int, vals, requests: int | None = None) -> list:
+        """One scrape of the CONTROL_SERIES gauges as JSON writes of
+        CONTROL_BATCH samples (the first ``requests`` of them, if given);
+        returns each request's status and body."""
+        codes = []
+        for lo in list(range(0, len(vals), CONTROL_BATCH))[:requests]:
+            body = json.dumps([{"tags": {"__name__": "ctl", "i": str(i)},
+                                "timestamp": t_nanos, "value": float(vals[i])}
+                               for i in range(lo, min(lo + CONTROL_BATCH, len(vals)))])
+            st, out = self.call("/api/v1/json/write", body.encode(), "POST")
+            if st == 200:
+                self.acked += json.loads(out)["written"]
+                self.acked_requests += 1
+            codes.append((st, out))
+        return codes
+
+    def close(self) -> None:
+        self.asm.close()
+
+
+def control_values(seed: int, k: int) -> np.ndarray:
+    """Scrape k's integer-valued gauges (M3TSZ's int path: exact)."""
+    return np.random.default_rng(seed * 1000 + k).integers(0, 10**6, CONTROL_SERIES) + 0.0
+
+
+def breakers_on_a_node(seed: int, dev) -> dict:
+    """(c): a node at config #2's 100,000 gauges; device.dispatch armed
+    in error mode through the debug endpoint refuses (503) each write of
+    one scrape, none acknowledged, and opens storage.buffer_append's
+    breaker; disarmed, after breaker_reset, a write is acknowledged and
+    closes it; after the flush every volume decodes on the card to
+    exactly the acknowledged scrapes; /health's device.membudget equals
+    the process's ledger."""
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.parallel import decode_gather, encode_place
+    from m3_tpu_torch.persist.fs import DataFileSetReader
+    from m3_tpu_torch.x import membudget
+
+    t0 = time.perf_counter()
+    node = ControlNode("phase22-c", {"mediator": {"tick_interval": "1h"}}, dev)
+    out = {"boot_s": time.perf_counter() - t0}
+    try:
+        for k in CONTROL_ACKED[:2]:
+            assert all(st == 200 for st, _ in node.scrape(STORE_START + k * 10 * SEC,
+                                                          control_values(seed, k)))
+        node.faults({"arm": "device.dispatch=error"})
+        refused = node.scrape(STORE_START + CONTROL_REFUSED * 10 * SEC,
+                              control_values(seed, CONTROL_REFUSED), CONTROL_FAILURES)
+        assert all(st == 503 and b"device oom at stage 'storage.buffer_append'" in body
+                   for st, body in refused), refused[:1]
+        doc = node.health()["device"]["stages"]["storage.buffer_append"]
+        assert len(refused) == CONTROL_FAILURES and doc["breaker"] == "open", doc
+        assert doc["errors"]["oom"] == CONTROL_FAILURES, doc
+        node.faults({"disarm": ["device.dispatch"]})
+        time.sleep(1.05)  # breaker_reset: the next append is the probe
+        k = CONTROL_ACKED[2]
+        assert all(st == 200 for st, _ in node.scrape(STORE_START + k * 10 * SEC,
+                                                      control_values(seed, k)))
+        health = node.health()
+        assert health["device"]["stages"]["storage.buffer_append"]["breaker"] == "closed"
+        assert health["device"]["membudget"] == membudget.snapshot()
+        assert node.acked == CONTROL_SERIES * len(CONTROL_ACKED), node.acked
+        out["refused_requests"] = len(refused)
+        out["writes_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        with KernelCheck(mt, "place_words", encode_place.place_words_plain) as pcheck:
+            node.asm.mediator.run_once(STORE_START + BLOCK + 10 * 60 * SEC + SEC)
+        out["flush_s"] = time.perf_counter() - t1
+        ids, segs = [], []
+        for sh, bs, v in fileset_volumes(node.root):
+            r = DataFileSetReader(node.root, "default", sh, bs, v)
+            for sid, seg in r.read_all():
+                ids.append(sid)
+                segs.append(seg)
+            r.close()
+        with KernelCheck(mt, "extract_fields64_t",
+                         decode_gather.extract_fields64_t_plain) as dcheck:
+            d_ts, d_vals, counts, dfb = mt.decode_batch(segs, 8, device=dev)
+        rows = np.asarray([int(sid[len(b"ctl{i="):-1]) for sid in ids])
+        assert np.array_equal(np.sort(rows), np.arange(CONTROL_SERIES)), "volumes miss series"
+        K = len(CONTROL_ACKED)
+        assert not dfb.any() and (counts == K).all(), "refused samples in the volumes"
+        want_t = STORE_START + np.asarray(CONTROL_ACKED, np.int64) * 10 * SEC
+        assert (d_ts[:, :K] == want_t[None, :]).all()
+        want_v = np.stack([control_values(seed, k) for k in CONTROL_ACKED], axis=1)[rows]
+        assert np.array_equal(d_vals[:, :K].view(np.int64), want_v.view(np.int64))
+        out.update(volumes=len(set((sh, bs, v) for sh, bs, v in fileset_volumes(node.root))),
+                   samples_read_back=int(counts.sum()), place_calls=pcheck.calls,
+                   extract_calls=dcheck.calls,
+                   max_abs_err={"place_words": pcheck.err,
+                                "extract_fields64_t": dcheck.err})
+    finally:
+        node.close()
+    return out
+
+
+def control_plane_on_a_node(seed: int, dev) -> dict:
+    """(d) and (e): the node of (c) with selfmon and the controller on and
+    a 1 s mediator tick, taking config #2 scrapes at wall-clock time:
+    its self-monitoring series land in ``_m3_selfmon`` on the card and
+    answer PromQL; a query.fetch latency fault past 1 s burns the query
+    SLO and the controller sheds query_slots to its floor; disarmed, the
+    slots go back to their baseline; /health serves ``slo`` and
+    ``controller``; /debug/dump is a zip of the reference's members."""
+    import io
+    import threading
+    import zipfile
+
+    extra = {"mediator": {"tick_interval": "1s", "snapshot_every": 100000,
+                          "cleanup_every": 100000},
+             "selfmon": {"enabled": True, "default_rules": False, "rules": CONTROL_RULES,
+                         "slo_deadline": "30s"},
+             "controller": {"enabled": True, "min_action_interval": "0s",
+                            "hold_ticks": 1}}
+    t0 = time.perf_counter()
+    node = ControlNode("phase22-d", extra, dev)
+    out = {"boot_s": time.perf_counter() - t0}
+    stop = threading.Event()
+    queries = {"slow": 0, "fast": 0}
+
+    def query_loop():
+        while not stop.is_set():
+            now = time.time()
+            st, _ = node.call(f"/api/v1/query?query=ctl%7Bi%3D%227%22%7D&time={now}")
+            assert st in (200, 503), st
+            queries["slow" if time.time() - now > 1.0 else "fast"] += 1
+            time.sleep(0.05)  # a dashboard's pace, not a flood
+
+    def slots() -> float:
+        return node.health()["controller"]["actuators"]["query_slots"]["value"]
+
+    def wait_for(pred, what):
+        end = time.monotonic() + CONTROL_WAIT_S
+        while not pred():
+            assert time.monotonic() < end, f"(d) waited {CONTROL_WAIT_S} s for {what}"
+            time.sleep(0.5)
+
+    threads = [threading.Thread(target=query_loop, daemon=True) for _ in range(2)]
+    try:
+        base = slots()
+        t_scrape = (time.time_ns() // (10 * SEC)) * 10 * SEC
+        assert all(st == 200 for st, _ in node.scrape(t_scrape, control_values(seed, 10)))
+        node.faults({"arm": f"query.fetch=delay:ms={CONTROL_QUERY_DELAY_MS}"})
+        for t in threads:
+            t.start()
+        t1 = time.perf_counter()
+        wait_for(lambda: slots() == 2.0, "query_slots at its floor")
+        out["shed_s"] = time.perf_counter() - t1
+        assert all(st == 200 for st, _ in node.scrape(t_scrape + 10 * SEC,
+                                                      control_values(seed, 11)))
+        node.faults({"disarm": ["query.fetch"]})
+        t1 = time.perf_counter()
+        wait_for(lambda: slots() == base, "query_slots back at baseline")
+        out["relax_s"] = time.perf_counter() - t1
+        stop.set()
+        for t in threads:
+            t.join()
+        health = node.health()
+        ctl = health["controller"]
+        acts = {(a["actuator"], a["action"]) for a in ctl["recent"]}
+        assert {("query_slots", "shed"), ("query_slots", "relax")} <= acts, ctl["recent"]
+        assert "device_fallback" not in ctl["actuators"]
+        slo = health["slo"]
+        assert "query-latency" in slo["rules"] and slo["selfmon"]["cycles"] > 0
+        # the self-monitoring series on the card, through PromQL: the
+        # stored count of write requests the HTTP front door took
+        time.sleep(1.5)  # one more selfmon cycle after the last write
+        q = (f"/api/v1/query?query=m3tpu_ingest_seconds_count&namespace=_m3_selfmon"
+             f"&time={time.time()}")
+        st, body = node.call(q)
+        res = json.loads(body)["data"]["result"]
+        assert st == 200 and res, body[:200]
+        stored = float(res[0]["value"][1])
+        assert stored == node.acked_requests == 2 * CONTROL_SERIES // CONTROL_BATCH, \
+            (stored, node.acked_requests)
+        assert node.acked == 2 * CONTROL_SERIES
+        assert node.asm.db.namespaces["_m3_selfmon"].device.type == dev.type  # the card
+        st, body = node.call("/debug/dump?seconds=0.2")
+        members = zipfile.ZipFile(io.BytesIO(body)).namelist()
+        assert st == 200 and members == DEBUG_MEMBERS, members
+        out.update(baseline_slots=base, queries=dict(queries),
+                   selfmon_cycles=slo["selfmon"]["cycles"],
+                   controller_actions=ctl["actions_total"], debug_members=members)
+    finally:
+        stop.set()
+        node.close()
+    return out
+
+
+def device_control_lane(seed: int) -> dict:
+    """Phase 22 in a lane of its own (its caching allocator in expandable
+    segments, which split every block to its request): (a) OOM, (b)
+    budgets and footprints, then the phase's main path with every launch
+    counted — the f64 ingest stage at full width, (c) breakers on a node,
+    (d)-(e) the control plane — and the wall of each part.  Returns the
+    parts' results, the launches and each kernel's largest difference
+    from its plain version."""
+    import torch
+
+    torch.set_num_threads(1)
+    lane_wait()
+    dev = torch.device("cuda")
+    out = {}
+    t0 = time.perf_counter()
+    out["a"] = oom_through_a_stage(dev)
+    out["b_resident"] = resident_checks(dev)
+    out["b_transient"] = transient_checks(seed, dev)
+    out["ab_s"] = time.perf_counter() - t0
+    zero_launches()
+    t0 = time.perf_counter()
+    out["ingest"] = f64_ingest_path(seed, dev)
+    out["c"] = breakers_on_a_node(seed, dev)
+    out["d"] = control_plane_on_a_node(seed, dev)
+    launches = read_launches()
+    out["main_path_s"] = time.perf_counter() - t0
+    err = dict(out["ingest"].pop("max_abs_err"))
+    err.update(out["c"].pop("max_abs_err"))
+    return {"parts": out, "launches": launches, "max_abs_err": err}
+
+
+def device_control_records(kernels: list, got: dict, card: str) -> None:
+    """Phase 22's result into the kernel records: ``device_launches`` (its
+    main path's launches, each above 0) and its largest difference from
+    the plain versions."""
+    for k in kernels:
+        name = k["name"]
+        k["device_launches"] = got["launches"][name]
+        k["max_abs_err"] = max(k["max_abs_err"], got["max_abs_err"].get(name, 0))
+    assert all(k["device_launches"] > 0 for k in kernels), got["launches"]
+    log(f"phase22 [{card}] launches on its path: {got['launches']}")
+    log(f"phase22 [{card}] device boundary and control plane: " + json.dumps(got["parts"]))
+
+
+def node_tier_lane(seed: int, card: str) -> dict:
+    """Phases 18 and 19 in a lane of its own.  Phase 18's request builders
+    start with the lane, so its bodies are built while the main process
+    runs phases 1-11.  Returns each kernel's partial record: its launches
+    on the node's and the tier's paths and its checks there."""
+    import torch
+
+    builders = node_builders(seed, PROMQL_GROUPS, PROMQL_BUCKETS)
+    try:
+        torch.set_num_threads(LANE_THREADS)
+        lane_wait()
+    except BaseException:
+        builders[0].terminate()
+        raise
+    dev = torch.device("cuda")
+    recs = [{"name": name, "max_abs_err": 0} for name in KERNEL_NAMES]
+    t0 = time.perf_counter()
+    _, node_launched, node_check, place_node = node_phase(
+        seed, PROMQL_GROUPS, PROMQL_BUCKETS, dev, card, builders)
+    log(f"phase18 done in {time.perf_counter() - t0:.1f} s")
+    assert node_launched["place_words"] > 0 and node_check["extract_fields64_t"] > 0, \
+        (node_launched, node_check)
+    for k in recs:
+        k["node_launches"] = node_launched[k["name"]]
+        k["node_check_launches"] = node_check[k["name"]]
+        if k["name"] == "place_words":  # also held at the node flush's shapes
+            k["max_abs_err"] = max(k["max_abs_err"], place_node.pop("node_max_abs_err"))
+            k.update(place_node)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tier_t, tier_launched, place_tier, ext_tier = aggregator_tier_phase(seed, dev, card)
+    log(f"phase19 done in {time.perf_counter() - t0:.1f} s")
+    for k in recs:
+        k["tier_launches"] = tier_launched[k["name"]]
+        rec = {"place_words": place_tier, "extract_fields64_t": ext_tier}.get(k["name"])
+        if rec is not None:  # also held at the aggregator tier's shapes
+            k["max_abs_err"] = max(k["max_abs_err"], rec.pop("tier_max_abs_err"))
+            k.update(rec)
+        if k["name"] == "place_words":  # and in the HOPS pipeline, every launch
+            k["max_abs_err"] = max(k["max_abs_err"], tier_t["hops_place_max_abs_err"])
+    return {"records": recs}
+
+
+# ---- lanes: phases in processes of their own, beside the main one ----
+
+KERNEL_NAMES = ("place_words", "extract_fields64_t", "segment_ingest", "segment_minmax")
+LANE_THREADS = 2  # torch's CPU threads in a lane: four processes share the host
+_LANE: dict = {}
+
+
+def lane_wait() -> None:
+    """Block a lane until the main process releases it (after phase 11);
+    end it if the main process is gone."""
+    import os
+
+    while not _LANE["go"].wait(2.0):
+        if os.getppid() != _LANE["ppid"]:
+            raise SystemExit("chip_smoke: the main process is gone")
+
+
+def lane_main(go, conn, fn, args) -> None:
+    """A lane's process: ``fn(*args)`` (which calls ``lane_wait`` before it
+    touches the card), then ("ok", result, its end's wall-clock time, peak
+    host RSS in KiB) or ("error", the traceback) down ``conn``.  SIGTERM ends it through
+    SystemExit, so its own pools and servers are shut down."""
+    import os
+    import resource
+    import signal
+    import traceback
+
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    _LANE.update(go=go, ppid=os.getppid())
+    try:
+        out = fn(*args)
+        conn.send(("ok", out, time.time(),
+                   resource.getrusage(resource.RUSAGE_SELF).ru_maxrss))
+    except BaseException:
+        conn.send(("error", traceback.format_exc(), None, None))
+        raise
+    finally:
+        conn.close()
+
+
+class Lane:
+    """One or more phases run by ``fn(*args)`` in a spawned process of
+    their own (not a pool worker: a lane may start processes itself),
+    started with the script so that its imports and set-up overlap the
+    builds, and released by ``release`` after phase 11.  ``env`` is set
+    for the lane's process alone."""
+
+    def __init__(self, name: str, fn, *args, env: dict | None = None):
+        import multiprocessing
+        import os
+
+        ctx = multiprocessing.get_context("spawn")
+        self.name = name
+        self.go = ctx.Event()
+        self._recv, send = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=lane_main, args=(self.go, send, fn, args),
+                                name=name)
+        env = env or {}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            self.proc.start()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    del os.environ[k]
+                else:
+                    os.environ[k] = v
+        send.close()
+        self.span = None
+
+    def release(self) -> None:
+        self.go.set()
+        self.released = time.time()
+
+    def result(self, timeout: float = 1200.0):
+        """The lane's result; raises if it failed, died or is still
+        running after ``timeout`` seconds.  Sets ``span`` (release, end)."""
+        t0 = time.perf_counter()
+        if not self._recv.poll(timeout):
+            raise TimeoutError(f"{self.name} still running after {timeout} s")
+        try:
+            kind, out, end, rss = self._recv.recv()
+        except EOFError:
+            self.proc.join(30)
+            raise RuntimeError(f"{self.name} exited {self.proc.exitcode} with no result")
+        self.proc.join(60)
+        if kind != "ok":
+            raise RuntimeError(f"{self.name} failed:\n{out}")
+        self.span = (self.released, end)
+        log(f"lane {self.name}: ran {end - self.released:.1f} s; the main process waited "
+            f"{time.perf_counter() - t0:.1f} s for it; peak host RSS {rss / 2**20:.2f} GiB")
+        return out
+
+    def stop(self) -> None:
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(30)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join(30)
+
+
+def merge_records(kernels: list, recs: list) -> None:
+    """A lane's partial kernel records into the script's: the larger
+    ``max_abs_err``, every other key set."""
+    by_name = {k["name"]: k for k in kernels}
+    for rec in recs:
+        k = by_name[rec["name"]]
+        for key, v in rec.items():
+            if key == "max_abs_err":
+                k[key] = max(k[key], v)
+            elif key != "name":
+                k[key] = v
+
+
+def shared_phases(spans: dict) -> list:
+    """The phases (``spans``: phase -> (process, start, end)) whose wall
+    overlapped a phase of another process: their kernel times were taken
+    on a shared card."""
+    return sorted(p for p, (who, a, b) in spans.items()
+                  if any(o != who and a < d and b > c for o, c, d in spans.values()))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5580,6 +6300,30 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
 
+    import m3_tpu_torch  # noqa: F401  (without the port the script ends here)
+
+    card = card_line()
+    t_start = time.perf_counter()
+    # phases 16, 18-19 and 22 run in lanes, processes of their own started
+    # now and released after phase 11, beside phases 12-15, 20 and 17 in
+    # this one (PERF.md §4)
+    lanes = []
+    try:
+        lanes.append(Lane("phase16", downsample_lane, args.seed, card))
+        lanes.append(Lane("phases18-19", node_tier_lane, args.seed, card))
+        lanes.append(Lane("phase22", device_control_lane, args.seed,
+                          env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}))
+        return run(args, lanes, card, t_start)
+    finally:
+        for lane in lanes:
+            lane.stop()
+
+
+def run(args, lanes: list, card: str, t_start: float) -> int:
+    """Phases 1-22 (see the module docstring); ``lanes`` wait for their
+    release after phase 11."""
+    import torch
+
     from m3_tpu_torch.core.xtime import Unit
     from m3_tpu_torch.encoding import m3tsz_torch as mt
     from m3_tpu_torch.parallel import _cuda, decode_gather, encode_place
@@ -5588,12 +6332,6 @@ def main() -> int:
     dev = torch.device("cuda")
     S, T = args.series, args.points
     W = max(16, T * 40 // 64 + 8)
-    card = card_line()
-    t_start = time.perf_counter()
-
-    # phase 18's request builders start now: their start-up and their
-    # work overlap phases 1-17 (Pool workers end with the script)
-    builders = node_builders(args.seed, PROMQL_GROUPS, PROMQL_BUCKETS)
 
     # ---- phase 1: card, builds ----
     log(f"card: {card}")
@@ -5844,7 +6582,13 @@ def main() -> int:
     del packed_t
     torch.cuda.empty_cache()
 
+    # ---- the lanes start: phases 16, 18-19 and 22 beside 12-15, 20, 17 ----
+    for lane in lanes:
+        lane.release()
+    spans = {}  # phase -> (process, wall start, wall end)
+
     # ---- phases 12-13: the PromQL query path (BASELINE config #5) ----
+    w0 = time.time()
     t0 = time.perf_counter()
     promql_t = promql_config5(args.seed, PROMQL_GROUPS, PROMQL_BUCKETS, dev, card)
     log(f"phase12 done in {time.perf_counter() - t0:.1f} s")
@@ -5853,6 +6597,7 @@ def main() -> int:
     pipe_t, query_launches = bytes_to_quantiles(args.seed, PROMQL_GROUPS, PROMQL_BUCKETS,
                                                 dev, card)
     log(f"phase13 done in {time.perf_counter() - t0:.1f} s")
+    spans["phases12-13"] = ("main", w0, time.time())
     for k in kernels:
         k["query_launches"] = query_launches[k["name"]]
         if k["name"] == "extract_fields64_t":  # also held at the query path's shapes
@@ -5863,6 +6608,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phases 14-15: the storage node ----
+    w0 = time.time()
     t0 = time.perf_counter()
     store_t, storage_launches, check_launches, place_store = storage_node(
         args.seed, STORE_SERIES, dev, card)
@@ -5871,6 +6617,7 @@ def main() -> int:
     t0 = time.perf_counter()
     promql_store_t = promql_over_storage(args.seed, PROMQL_GROUPS, PROMQL_BUCKETS, dev, card)
     log(f"phase15 done in {time.perf_counter() - t0:.1f} s")
+    spans["phases14-15"] = ("main", w0, time.time())
     for k in kernels:
         k["storage_launches"] = storage_launches[k["name"]]
         k["storage_check_launches"] = check_launches[k["name"]]
@@ -5881,46 +6628,35 @@ def main() -> int:
                                                           "phase15": promql_store_t}))
     torch.cuda.empty_cache()
 
-    # ---- phases 16-17: the coordinator downsampler, forwarding ----
-    downsample_phases(kernels, args.seed, args.agg_series, dev, card)
-    torch.cuda.empty_cache()
-
-    # ---- phase 18: the node ----
-    t0 = time.perf_counter()
-    node_t, node_launched, node_check, place_node = node_phase(
-        args.seed, PROMQL_GROUPS, PROMQL_BUCKETS, dev, card, builders)
-    log(f"phase18 done in {time.perf_counter() - t0:.1f} s")
-    assert node_launched["place_words"] > 0 and node_check["extract_fields64_t"] > 0, \
-        (node_launched, node_check)
-    for k in kernels:
-        k["node_launches"] = node_launched[k["name"]]
-        k["node_check_launches"] = node_check[k["name"]]
-        if k["name"] == "place_words":  # also held at the node flush's shapes
-            k["max_abs_err"] = max(k["max_abs_err"], place_node.pop("node_max_abs_err"))
-            k.update(place_node)
-    torch.cuda.empty_cache()
-
-    # ---- phase 19: the aggregator tier ----
-    t0 = time.perf_counter()
-    tier_t, tier_launched, place_tier, ext_tier = aggregator_tier_phase(args.seed, dev, card)
-    log(f"phase19 done in {time.perf_counter() - t0:.1f} s")
-    for k in kernels:
-        k["tier_launches"] = tier_launched[k["name"]]
-        rec = {"place_words": place_tier, "extract_fields64_t": ext_tier}.get(k["name"])
-        if rec is not None:  # also held at the aggregator tier's shapes
-            k["max_abs_err"] = max(k["max_abs_err"], rec.pop("tier_max_abs_err"))
-            k.update(rec)
-        if k["name"] == "place_words":  # and in the HOPS pipeline, every launch
-            k["max_abs_err"] = max(k["max_abs_err"], tier_t["hops_place_max_abs_err"])
-    torch.cuda.empty_cache()
-
     # ---- phase 20: the device mesh ----
+    w0 = time.time()
     t0 = time.perf_counter()
     _, mesh_launched, mesh_err = mesh_phase(args.seed, S, dev, card)
     log(f"phase20 done in {time.perf_counter() - t0:.1f} s")
+    spans["phase20"] = ("main", w0, time.time())
     for k in kernels:
         k["mesh_launches"] = mesh_launched[k["name"]]
         k["max_abs_err"] = max(k["max_abs_err"], mesh_err[k["name"]])
+    torch.cuda.empty_cache()
+
+    # ---- phase 17: the aggregator's entry point, forwarding ----
+    w0 = time.time()
+    fwd = forwarding_phase_main(args.seed, args.agg_series, dev, card)
+    spans["phase17"] = ("main", w0, time.time())
+    torch.cuda.empty_cache()
+
+    # ---- the lanes end: phase 16, phases 18-19, phase 22 ----
+    ds_lane, node_lane, ctl_lane = lanes
+    downsample_records(kernels, ds_lane.result(), fwd, card)
+    merge_records(kernels, node_lane.result()["records"])
+    device_control_records(kernels, ctl_lane.result(), card)
+    for lane in lanes:
+        spans[lane.name] = (lane.name, *lane.span)
+    shared = shared_phases(spans)
+    for k in kernels:
+        k["shared_card"] = shared
+    log(f"phases [{card}] on a shared card (each beside a phase of another process): {shared}; "
+        "walls " + json.dumps({p: round(b - a, 1) for p, (_, a, b) in spans.items()}))
     torch.cuda.empty_cache()
 
     # ---- phase 21: the replicated storage cluster ----

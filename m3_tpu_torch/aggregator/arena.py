@@ -27,6 +27,12 @@ as the reference does (see ``_clear_index``).
 This is one of two layouts.  ``make_arenas`` builds the packed one
 (``packed.py``) by default, as the JAX package does, and this one for
 ``layout="f64"``: the reference's parity oracle.
+
+Each arena reserves its footprint with ``x.membudget`` before its
+tensors are allocated, and runs every ingest, drain, reset and clear
+behind ``x.devguard``'s stages (``arena.ingest``, ``arena.consume``), as
+the reference does; unlike the reference, a failure there raises typed
+instead of re-running the batch on another implementation.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import torch
 from m3_tpu_torch import resolve_device
 from m3_tpu_torch.metrics.aggregation import AggregationType
 from m3_tpu_torch.parallel import segment_ingest as si
+from m3_tpu_torch.x import devguard, membudget
 
 I64_MIN = int(np.iinfo(np.int64).min)
 I64_MAX = int(np.iinfo(np.int64).max)
@@ -696,6 +703,44 @@ class _TimerLanesMixin:
         return None
 
 
+def _guarded_ingest(call):
+    """Run one arena ingest behind the device guard (the reference's
+    ``_guarded_ingest``).  The port has one ingest per layout, so there
+    is no fallback: a classified failure is counted against the
+    ``arena.ingest`` stage and raised typed."""
+    return devguard.run_guarded("arena.ingest", call)
+
+
+def _guarded_consume(call):
+    """Arena window drains behind the ``arena.consume`` stage, with the
+    ``device.transfer`` point after the drain (the reference's
+    ``_guarded_consume``)."""
+    def primary():
+        out = call()
+        devguard.transfer_point("arena.consume")
+        return out
+
+    return devguard.run_guarded("arena.consume", primary)
+
+
+def _grown(mem, old_nbytes: int, pad):
+    """``pad()`` (a grow's new tensors), with the reservation ``mem``
+    (already resized for them) put back to ``old_nbytes`` if the
+    allocation fails."""
+    try:
+        return pad()
+    except BaseException:
+        mem.resize(old_nbytes)
+        raise
+
+
+def _guarded_state_op(call):
+    """Window resets and slot clears ride the consume cycle's stage
+    breaker (they follow a drain or an expiry sweep), as in the
+    reference."""
+    return devguard.run_guarded("arena.consume", call)
+
+
 class _Arena:
     """Shared plumbing: host arrays or tensors in, tensors on the arena's
     device for the functions above."""
@@ -704,6 +749,18 @@ class _Arena:
         self.num_windows = num_windows
         self.capacity = capacity
         self.device = resolve_device(device)
+
+    def _alloc(self, component: str, nbytes: int, init):
+        """Reserve the state's ``nbytes`` for ``component`` (released when
+        the arena is collected), then allocate it with ``init()`` behind
+        the ``arena.ingest`` stage: the card's refusal is counted and
+        raised typed, as an ingest's is, and gives the bytes back."""
+        self._mem = membudget.reserve(component, nbytes, owner=self)
+        try:
+            return devguard.run_guarded("arena.ingest", init)
+        except BaseException:
+            self._mem.release()
+            raise
 
     def _t(self, x, dtype):
         return torch.as_tensor(x, device=self.device).to(dtype)
@@ -729,43 +786,59 @@ class CounterArena(_ScalarLanesMixin, _Arena):
 
     def __init__(self, num_windows: int, capacity: int, device=None):
         super().__init__(num_windows, capacity, device)
-        self.state = counter_init(num_windows, capacity, self.device)
+        self.state = self._alloc(
+            "aggregator.counter",
+            membudget.counter_arena_bytes("f64", num_windows, capacity),
+            lambda: counter_init(num_windows, capacity, self.device))
 
     def ingest(self, windows, slots, values, times):
-        w, s, v, t = self._batch(windows, slots, values, times, torch.int64)
-        idx = flat_window_index(w, s, self.num_windows, self.capacity)
-        self.state = counter_ingest(self.state, idx, s, v, t)
+        def call():
+            w, s, v, t = self._batch(windows, slots, values, times, torch.int64)
+            idx = flat_window_index(w, s, self.num_windows, self.capacity)
+            return counter_ingest(self.state, idx, s, v, t)
+
+        self.state = _guarded_ingest(call)
 
     def consume(self, window: int):
-        return counter_consume(self.state, window, self.capacity)
+        return _guarded_consume(lambda: counter_consume(
+            self.state, window, self.capacity))
 
     def reset_window(self, window: int):
-        self.state = counter_reset_window(self.state, window, self.capacity)
+        self.state = _guarded_state_op(lambda: counter_reset_window(
+            self.state, window, self.capacity))
 
     def clear_slots(self, slots):
-        self.state = counter_clear_slots(self.state, self._slots(slots),
-                                         self.num_windows, self.capacity)
+        self.state = _guarded_state_op(lambda: counter_clear_slots(
+            self.state, self._slots(slots), self.num_windows, self.capacity))
 
 
 class GaugeArena(_ScalarLanesMixin, _Arena):
     def __init__(self, num_windows: int, capacity: int, device=None):
         super().__init__(num_windows, capacity, device)
-        self.state = gauge_init(num_windows, capacity, self.device)
+        self.state = self._alloc(
+            "aggregator.gauge",
+            membudget.gauge_arena_bytes("f64", num_windows, capacity),
+            lambda: gauge_init(num_windows, capacity, self.device))
 
     def ingest(self, windows, slots, values, times):
-        w, s, v, t = self._batch(windows, slots, values, times, torch.float64)
-        idx = flat_window_index(w, s, self.num_windows, self.capacity)
-        self.state = gauge_ingest(self.state, idx, s, v, t)
+        def call():
+            w, s, v, t = self._batch(windows, slots, values, times, torch.float64)
+            idx = flat_window_index(w, s, self.num_windows, self.capacity)
+            return gauge_ingest(self.state, idx, s, v, t)
+
+        self.state = _guarded_ingest(call)
 
     def consume(self, window: int):
-        return gauge_consume(self.state, window, self.capacity)
+        return _guarded_consume(lambda: gauge_consume(
+            self.state, window, self.capacity))
 
     def reset_window(self, window: int):
-        self.state = gauge_reset_window(self.state, window, self.capacity)
+        self.state = _guarded_state_op(lambda: gauge_reset_window(
+            self.state, window, self.capacity))
 
     def clear_slots(self, slots):
-        self.state = gauge_clear_slots(self.state, self._slots(slots),
-                                       self.num_windows, self.capacity)
+        self.state = _guarded_state_op(lambda: gauge_clear_slots(
+            self.state, self._slots(slots), self.num_windows, self.capacity))
 
 
 class TimerArena(_TimerLanesMixin, _Arena):
@@ -778,7 +851,11 @@ class TimerArena(_TimerLanesMixin, _Arena):
         self.sample_capacity = sample_capacity
         self.quantiles = tuple(quantiles)
         self.packed32 = packed32
-        self.state = timer_init(num_windows, capacity, sample_capacity, self.device)
+        self.state = self._alloc(
+            "aggregator.timer",
+            membudget.timer_arena_bytes("f64", num_windows, capacity,
+                                        sample_capacity),
+            lambda: timer_init(num_windows, capacity, sample_capacity, self.device))
         # Host shadow of state.sample_n: the growth check needs no device
         # round trip per ingest batch.
         self._sample_n_host = np.zeros(num_windows, np.int64)
@@ -795,35 +872,47 @@ class TimerArena(_TimerLanesMixin, _Arena):
         in_range = ((windows_np >= 0) & (windows_np < self.num_windows)
                     & (slots_np >= 0) & (slots_np < self.capacity))
         per_w = np.bincount(windows_np[in_range], minlength=self.num_windows)
+        # commit the shadow only after the grow and the append succeed
         new_n = self._sample_n_host + per_w
         needed = int(new_n.max())
         if needed > self.sample_capacity:
             self._grow(needed)
-        w, s, v, t = self._batch(windows_np, slots_np, values, times, torch.float64)
-        self.state = timer_ingest(self.state, w, s, v, t, self.capacity)
+
+        def call():
+            w, s, v, t = self._batch(windows_np, slots_np, values, times,
+                                     torch.float64)
+            return timer_ingest(self.state, w, s, v, t, self.capacity)
+
+        self.state = _guarded_ingest(call)
         self._sample_n_host = new_n
 
     def _grow(self, needed: int) -> None:
         new_cap = self.sample_capacity
         while new_cap < needed:
             new_cap *= 2
+        # admission before the pad allocates: an over-budget grow raises
+        # typed and leaves the existing samples intact
+        self._mem.resize(membudget.timer_arena_bytes(
+            "f64", self.num_windows, self.capacity, new_cap))
         pad = new_cap - self.sample_capacity
         st = self.state
-        self.state = st._replace(
-            sample_slot=torch.nn.functional.pad(st.sample_slot, (0, pad),
-                                                value=self.capacity),
-            sample_val=torch.nn.functional.pad(st.sample_val, (0, pad)),
-        )
+        self.state = _grown(self._mem, membudget.timer_arena_bytes(
+            "f64", self.num_windows, self.capacity, self.sample_capacity),
+            lambda: st._replace(
+                sample_slot=torch.nn.functional.pad(st.sample_slot, (0, pad),
+                                                    value=self.capacity),
+                sample_val=torch.nn.functional.pad(st.sample_val, (0, pad))))
         self.sample_capacity = new_cap
 
     def consume(self, window: int):
-        return timer_consume(self.state, window, self.capacity, self.quantiles,
-                             self.packed32)
+        return _guarded_consume(lambda: timer_consume(
+            self.state, window, self.capacity, self.quantiles, self.packed32))
 
     def reset_window(self, window: int):
-        self.state = timer_reset_window(self.state, window, self.capacity)
+        self.state = _guarded_state_op(lambda: timer_reset_window(
+            self.state, window, self.capacity))
         self._sample_n_host[window] = 0
 
     def clear_slots(self, slots):
-        self.state = timer_clear_slots(self.state, self._slots(slots),
-                                       self.num_windows, self.capacity)
+        self.state = _guarded_state_op(lambda: timer_clear_slots(
+            self.state, self._slots(slots), self.num_windows, self.capacity))

@@ -41,9 +41,9 @@ recovers moments with the same scan (f32 value precision, exact counts).
 State tensors live on the arena's device.  The ingest, reset and clear
 functions may update the state they are given in place, and return the
 new state (the reference donates its state to the same functions);
-consume only reads.  Left out, as in the f64 layout: the reference's
-``membudget.reserve`` and ``_guarded_*`` device-guard wrappers (ROADMAP
-Queue A item 11 owns them).
+consume only reads.  As in the f64 layout, each arena reserves its
+footprint with ``x.membudget`` and runs its ingest, drain, reset and
+clear behind ``x.devguard``'s stages, with no fallback.
 """
 
 from __future__ import annotations
@@ -60,6 +60,10 @@ from m3_tpu_torch.aggregator.arena import (
     I64_MIN,
     _Arena,
     _clear_index,
+    _grown,
+    _guarded_consume,
+    _guarded_ingest,
+    _guarded_state_op,
     _mean,
     _sanitize_slots,
     _scatter_max_drop,
@@ -71,6 +75,8 @@ from m3_tpu_torch.aggregator.arena import (
     timer_append_plan,
 )
 from m3_tpu_torch.parallel.segmented import associative_scan
+from m3_tpu_torch.x import membudget
+from m3_tpu_torch.x.devguard import DeviceStateError
 
 # (count bits, sum bits) of the counter base word; tests pass narrower
 # widths to exercise promotion.
@@ -87,16 +93,6 @@ _ERR_POOL_FULL = 2  # overflow pool exhausted
 # timer sample-buffer overflow: raised only in the sharded step's
 # lanes["err"] (the host PackedTimerArena grows its buffer instead)
 _ERR_TIMER_OVERFLOW = 4
-
-
-class DeviceStateError(RuntimeError):
-    """Device-resident arena state is unreliable.  The port's copy of
-    ``m3_tpu.x.devguard.DeviceStateError`` (a RuntimeError), with the
-    same message form; the device guard itself is not ported."""
-
-    def __init__(self, stage: str, message: str):
-        super().__init__(f"device state at stage {stage!r}: {message}")
-        self.stage = stage
 
 
 # ---------------------------------------------------------------------------
@@ -817,8 +813,12 @@ class PackedCounterArena(_ScalarLanesMixin, _Arena):
         super().__init__(num_windows, capacity, device)
         self.widths = tuple(widths)
         self.promote_k = promote_k
-        self.state = counter_init(num_windows, capacity, pool_capacity, self.widths,
-                                  self.device)
+        self.state = self._alloc(
+            "aggregator.counter",
+            membudget.counter_arena_bytes("packed", num_windows, capacity,
+                                          pool_capacity),
+            lambda: counter_init(num_windows, capacity, pool_capacity, self.widths,
+                                 self.device))
 
     def _check_err(self):
         err = int(self.state.err)
@@ -842,43 +842,57 @@ class PackedCounterArena(_ScalarLanesMixin, _Arena):
                 "out over the next drains)")
 
     def ingest(self, windows, slots, values, times):
-        w, s, v, t = self._batch(windows, slots, values, times, torch.int64)
-        idx = packed_flat_index(w, s, self.num_windows, self.capacity)
-        self.state = counter_ingest(self.state, idx, v, t, self.num_windows, self.capacity,
-                                    self.widths, self.promote_k)
+        def call():
+            w, s, v, t = self._batch(windows, slots, values, times, torch.int64)
+            idx = packed_flat_index(w, s, self.num_windows, self.capacity)
+            return counter_ingest(self.state, idx, v, t, self.num_windows,
+                                  self.capacity, self.widths, self.promote_k)
+
+        self.state = _guarded_ingest(call)
 
     def consume(self, window: int):
         self._check_err()
-        return counter_consume(self.state, window, self.capacity, self.widths)
+        return _guarded_consume(lambda: counter_consume(
+            self.state, window, self.capacity, self.widths))
 
     def reset_window(self, window: int):
-        self.state = counter_reset_window(self.state, window, self.num_windows,
-                                          self.capacity, self.widths)
+        self.state = _guarded_state_op(lambda: counter_reset_window(
+            self.state, window, self.num_windows, self.capacity, self.widths))
 
     def clear_slots(self, slots):
-        self.state = counter_clear_slots(self.state, self._slots(slots), self.num_windows,
-                                         self.capacity, self.widths)
+        self.state = _guarded_state_op(lambda: counter_clear_slots(
+            self.state, self._slots(slots), self.num_windows, self.capacity,
+            self.widths))
 
 
 class PackedGaugeArena(_ScalarLanesMixin, _Arena):
     def __init__(self, num_windows: int, capacity: int, device=None):
         super().__init__(num_windows, capacity, device)
-        self.state = gauge_init(num_windows, capacity, self.device)
+        self.state = self._alloc(
+            "aggregator.gauge",
+            membudget.gauge_arena_bytes("packed", num_windows, capacity),
+            lambda: gauge_init(num_windows, capacity, self.device))
 
     def ingest(self, windows, slots, values, times):
-        w, s, v, t = self._batch(windows, slots, values, times, torch.float64)
-        idx = packed_flat_index(w, s, self.num_windows, self.capacity)
-        self.state = gauge_ingest(self.state, idx, v, t, self.num_windows, self.capacity)
+        def call():
+            w, s, v, t = self._batch(windows, slots, values, times, torch.float64)
+            idx = packed_flat_index(w, s, self.num_windows, self.capacity)
+            return gauge_ingest(self.state, idx, v, t, self.num_windows,
+                                self.capacity)
+
+        self.state = _guarded_ingest(call)
 
     def consume(self, window: int):
-        return gauge_consume(self.state, window, self.capacity)
+        return _guarded_consume(lambda: gauge_consume(
+            self.state, window, self.capacity))
 
     def reset_window(self, window: int):
-        self.state = gauge_reset_window(self.state, window, self.capacity)
+        self.state = _guarded_state_op(lambda: gauge_reset_window(
+            self.state, window, self.capacity))
 
     def clear_slots(self, slots):
-        self.state = gauge_clear_slots(self.state, self._slots(slots), self.num_windows,
-                                       self.capacity)
+        self.state = _guarded_state_op(lambda: gauge_clear_slots(
+            self.state, self._slots(slots), self.num_windows, self.capacity))
 
 
 class PackedTimerArena(_TimerLanesMixin, _Arena):
@@ -889,7 +903,11 @@ class PackedTimerArena(_TimerLanesMixin, _Arena):
         super().__init__(num_windows, capacity, device)
         self.sample_capacity = sample_capacity
         self.quantiles = tuple(quantiles)
-        self.state = timer_init(num_windows, capacity, sample_capacity, self.device)
+        self.state = self._alloc(
+            "aggregator.timer",
+            membudget.timer_arena_bytes("packed", num_windows, capacity,
+                                        sample_capacity),
+            lambda: timer_init(num_windows, capacity, sample_capacity, self.device))
         # Host shadow of state.sample_n: the growth check needs no device
         # round trip per ingest batch.
         self._sample_n_host = np.zeros(num_windows, np.int64)
@@ -905,26 +923,38 @@ class PackedTimerArena(_TimerLanesMixin, _Arena):
         needed = int(new_n.max())
         if needed > self.sample_capacity:
             self._grow(needed)
-        w, s, v, t = self._batch(windows_np, slots_np, values, times, torch.float64)
-        self.state = timer_ingest(self.state, w, s, v, t, self.capacity)
+
+        def call():
+            w, s, v, t = self._batch(windows_np, slots_np, values, times,
+                                     torch.float64)
+            return timer_ingest(self.state, w, s, v, t, self.capacity)
+
+        self.state = _guarded_ingest(call)
         self._sample_n_host = new_n
 
     def _grow(self, needed: int) -> None:
         new_cap = self.sample_capacity
         while new_cap < needed:
             new_cap *= 2
-        self.state = self.state._replace(sample=torch.nn.functional.pad(
-            self.state.sample, (0, new_cap - self.sample_capacity),
-            value=_timer_empty_word(self.capacity)))
+        self._mem.resize(membudget.timer_arena_bytes(
+            "packed", self.num_windows, self.capacity, new_cap))
+        st = self.state
+        self.state = _grown(self._mem, membudget.timer_arena_bytes(
+            "packed", self.num_windows, self.capacity, self.sample_capacity),
+            lambda: st._replace(sample=torch.nn.functional.pad(
+                st.sample, (0, new_cap - self.sample_capacity),
+                value=_timer_empty_word(self.capacity))))
         self.sample_capacity = new_cap
 
     def consume(self, window: int):
-        return timer_consume(self.state, window, self.capacity, self.quantiles)
+        return _guarded_consume(lambda: timer_consume(
+            self.state, window, self.capacity, self.quantiles))
 
     def reset_window(self, window: int):
-        self.state = timer_reset_window(self.state, window, self.capacity)
+        self.state = _guarded_state_op(lambda: timer_reset_window(
+            self.state, window, self.capacity))
         self._sample_n_host[window] = 0
 
     def clear_slots(self, slots):
-        self.state = timer_clear_slots(self.state, self._slots(slots), self.num_windows,
-                                       self.capacity)
+        self.state = _guarded_state_op(lambda: timer_clear_slots(
+            self.state, self._slots(slots), self.num_windows, self.capacity))

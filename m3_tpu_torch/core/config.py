@@ -14,11 +14,9 @@ The port's copy of ``m3_tpu/core/config.py``: the same sections, fields,
 defaults and validation messages.  PyYAML is imported only inside
 :func:`load_config`; without it, ``load_config`` reads JSON text (which
 YAML 1.2 parses to the same mapping) and refuses anything else with a
-:class:`ConfigError` naming PyYAML.  The selfmon peer and SLO-rule checks
-are copies of ``m3_tpu/instrument/selfmon.parse_peer`` and
-``m3_tpu/query/slo.rule_from_dict``'s validation, since neither module is
-ported.  Which sections a node built by the port can run is
-``server/assembly.run_node``'s business: it refuses the rest by name.
+:class:`ConfigError` naming PyYAML.  Which sections a node built by the
+port can run is ``server/assembly.run_node``'s business: it refuses the
+rest by name.
 """
 
 from __future__ import annotations
@@ -63,73 +61,6 @@ def _expand_env(text: str) -> str:
             return m.group(2)
         return val
     return _ENV_RE.sub(sub, text)
-
-
-def _check_peer(entry) -> None:
-    """``host:port`` or ``name=host:port`` (selfmon.parse_peer's check)."""
-    entry = str(entry).strip()
-    name, sep, addr = entry.partition("=")
-    if not sep:
-        name, addr = entry, entry
-    host, _, port = addr.rpartition(":")
-    if (not name or not host or not port.isdigit()
-            or not (0 < int(port) < 65536)):
-        raise ValueError(
-            f"selfmon peer {entry!r}: expected 'host:port' or "
-            "'name=host:port'")
-
-
-def _check_burn_window(long: str, short: str, factor: float) -> None:
-    for f, v in (("long", long), ("short", short)):
-        try:
-            parse_duration(v)
-        except ConfigError as e:
-            raise ValueError(f"burn window {f}: {e}") from None
-    if parse_duration(short) > parse_duration(long):
-        raise ValueError(
-            f"burn window short {short!r} exceeds long {long!r}")
-    if factor <= 0:
-        raise ValueError("burn window factor must be > 0")
-
-
-def _check_slo_rule(d: dict) -> None:
-    """slo.rule_from_dict's validation: the same checks, in the same
-    order, with the same messages."""
-    unknown = set(d) - {"name", "objective", "ratio", "windows"}
-    if unknown:
-        raise ValueError(f"SLO rule: unknown keys {sorted(unknown)}")
-    n_windows = 2  # the SRE-workbook default ladder
-    if "windows" in d:
-        n_windows = 0
-        for i, w in enumerate(d["windows"]):
-            bad = set(w) - {"long", "short", "factor"}
-            if bad:
-                raise ValueError(
-                    f"SLO rule window #{i}: unknown keys {sorted(bad)}")
-            missing = {"long", "short", "factor"} - set(w)
-            if missing:
-                raise ValueError(
-                    f"SLO rule window #{i}: missing keys {sorted(missing)}")
-            _check_burn_window(str(w["long"]), str(w["short"]),
-                               float(w["factor"]))
-            n_windows += 1
-    try:
-        name = str(d.get("name", ""))
-        objective = float(d.get("objective", 0.0))
-        ratio = str(d.get("ratio", ""))
-        if not name:
-            raise ValueError("SLO rule needs a name")
-        if not (0.0 < objective < 1.0):
-            raise ValueError(
-                f"rule {name}: objective must be in (0, 1), "
-                f"got {objective}")
-        if "{window}" not in ratio:
-            raise ValueError(
-                f"rule {name}: ratio template must contain '{{window}}'")
-        if not n_windows:
-            raise ValueError(f"rule {name}: at least one burn window")
-    except ValueError as e:
-        raise ValueError(f"SLO rule {d.get('name', '?')!r}: {e}") from None
 
 
 @dataclasses.dataclass
@@ -351,7 +282,7 @@ class DeviceConfig:
     breaker_reset: str = "10s"
 
     def validate(self, errs: list) -> None:
-        from m3_tpu_torch.x.diskbudget import parse_bytes
+        from m3_tpu_torch.x.membudget import parse_bytes
 
         try:
             parse_bytes(self.mem_budget)
@@ -388,7 +319,7 @@ class DiskConfig:
     critical_ratio: float = 0.10
 
     def validate(self, errs: list) -> None:
-        from m3_tpu_torch.x.diskbudget import parse_bytes
+        from m3_tpu_torch.x.membudget import parse_bytes
 
         for f in ("capacity", "reserve"):
             try:
@@ -441,14 +372,18 @@ class SelfmonConfig:
                 parse_duration(getattr(self, f))
             except ConfigError as e:
                 errs.append(f"selfmon.{f}: {e}")
+        from m3_tpu_torch.instrument.selfmon import parse_peer
+
         for p in self.peers:
             try:
-                _check_peer(p)
+                parse_peer(p)
             except ValueError as e:
                 errs.append(f"selfmon.peers: {e}")
+        from m3_tpu_torch.query.slo import rule_from_dict
+
         for i, r in enumerate(self.rules):
             try:
-                _check_slo_rule(r)
+                rule_from_dict(r)
             except (ValueError, TypeError) as e:
                 errs.append(f"selfmon.rules[{i}]: {e}")
 

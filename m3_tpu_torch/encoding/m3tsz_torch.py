@@ -27,11 +27,18 @@ Series that would hit the reference's float64 rounding (|val| > 2^53),
 or whose deltas leave the fixed time unit, are flagged ``fallback``;
 callers re-run those through a scalar codec.  There is no silent
 fallback anywhere: a CUDA tensor goes to the kernel or raises.
+
+``encode_batch_device`` and ``decode_batch_device`` run as the ``encode``
+and ``decode`` stages of ``x.devguard`` (typed errors, counted, no
+fallback) under an ``x.membudget`` transient reservation of their lane
+tables, and the decoder's resident control table reserves its bytes
+once per device (``decode.ctrl_table``), as in the reference.
 """
 
 from __future__ import annotations
 
 import functools
+import threading
 import time
 
 import numpy as np
@@ -47,6 +54,7 @@ from m3_tpu_torch.encoding.scheme import (
     ANNOTATION_MARKER, tail_bytes, write_special_marker)
 from m3_tpu_torch.parallel.decode_gather import extract_fields64_t
 from m3_tpu_torch.parallel.encode_place import place_words
+from m3_tpu_torch.x import devguard, membudget
 
 I64 = torch.int64
 I32 = torch.int32
@@ -421,7 +429,27 @@ def encode_batch_device(timestamps, value_bits, start, valid, unit: int = 1,
                         out_words: int = 0, prefix_bits=None,
                         default_unit: int | None = None, device=None,
                         timings: dict | None = None, fit_words: bool = False):
-    """Encode (S, T) series on one device.
+    """Encode (S, T) series on one device, as the ``encode`` stage of
+    the device guard under a transient reservation of the pass's lane
+    tables (``membudget.encode_lane_bytes``; an admission reject raises
+    typed before the guard, as in the reference).  The arguments and
+    result are :func:`_encode_batch_device`'s."""
+    S, T = np.shape(timestamps)
+    W = out_words if out_words else (T * 16) // 64 + 4
+    with membudget.transient("encode.lanes",
+                             membudget.encode_lane_bytes(S, T, W)):
+        return devguard.run_guarded("encode", lambda: _encode_batch_device(
+            timestamps, value_bits, start, valid, unit=unit,
+            out_words=out_words, prefix_bits=prefix_bits,
+            default_unit=default_unit, device=device, timings=timings,
+            fit_words=fit_words))
+
+
+def _encode_batch_device(timestamps, value_bits, start, valid, unit: int = 1,
+                         out_words: int = 0, prefix_bits=None,
+                         default_unit: int | None = None, device=None,
+                         timings: dict | None = None, fit_words: bool = False):
+    """Encode (S, T) series on one device (the unguarded pass).
 
     Args:
       timestamps: (S, T) int64 UnixNanos, padded entries arbitrary.
@@ -735,8 +763,20 @@ _VALUE_CTRL_TBL = _build_value_ctrl_table()
 @functools.lru_cache(maxsize=None)
 def value_ctrl_table(device: torch.device) -> torch.Tensor:
     """The table as an int32 tensor on ``device``, uploaded once per
-    device (every row fits 26 bits, so int32 holds the u32 values)."""
+    device (every row fits 26 bits, so int32 holds the u32 values).  Its
+    bytes are one permanent ``decode.ctrl_table`` reservation per device,
+    taken before the upload (the cache serializes nothing, so the lock
+    keeps two first decoders from reserving twice)."""
+    with _CTRL_TBL_LOCK:
+        if device not in _CTRL_TBL_RESERVED:
+            _CTRL_TBL_RESERVED[device] = membudget.reserve(
+                "decode.ctrl_table",
+                membudget.block_bytes(_VALUE_CTRL_TBL.size * 4))
     return torch.from_numpy(_VALUE_CTRL_TBL.astype(np.int32)).to(device)
+
+
+_CTRL_TBL_LOCK = threading.Lock()
+_CTRL_TBL_RESERVED: dict = {}  # device -> its permanent Reservation
 
 
 def _bit(p, n: int):
@@ -1069,6 +1109,23 @@ def resolved_chains(chains: str = "auto") -> str:
 def decode_batch_device(words, nbits, max_points: int, default_unit: int = 1,
                         device=None, timings: dict | None = None, chains: str = "auto",
                         scan_major: bool = False):
+    """The ``decode`` stage of the device guard, under a transient
+    reservation of the pass's lane tables
+    (``membudget.decode_lane_bytes``), around
+    :func:`_decode_batch_device`, whose arguments and result it has."""
+    ch = resolved_chains(chains)
+    S, Wn = np.shape(words)
+    with membudget.transient("decode.lanes", membudget.decode_lane_bytes(
+            S, Wn, max_points, chains=ch)):
+        return devguard.run_guarded("decode", lambda: _decode_batch_device(
+            words, nbits, max_points, default_unit=default_unit,
+            device=device, timings=timings, chains=ch,
+            scan_major=scan_major))
+
+
+def _decode_batch_device(words, nbits, max_points: int, default_unit: int = 1,
+                         device=None, timings: dict | None = None,
+                         chains: str = "auto", scan_major: bool = False):
     """Decode (S, W) stream words (int64 carriers of big-endian u64
     words) in two phases: the bit-boundary scan (``_decode_step``), then
     field extraction + chain reconstruction, by one of two tails that

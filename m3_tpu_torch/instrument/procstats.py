@@ -25,9 +25,7 @@ import os
 import threading
 import time
 
-# process start, the reference's ``instrument/debug.py`` module clock
-# (kept here: the debug bundle is not ported)
-_START_TIME = time.time()
+from m3_tpu_torch.instrument.debug import _START_TIME
 
 __all__ = ["ProcessCollector", "install_process_collector"]
 

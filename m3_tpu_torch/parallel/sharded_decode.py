@@ -8,9 +8,11 @@ outputs are gathered to the first device: bit for bit the one-device
 decode's.  A stream count that does not divide the device count is
 zero-padded; the padded rows decode as errors and are sliced off.
 
-Unlike the reference, nothing falls back: the JAX package guards its
-call and steps down to the other chains tail on a device fault, while
-here a failure raises.
+The sharded dispatch is one call of ``x.devguard``'s ``decode`` stage
+(each shard runs the codec's unguarded pass), as the reference guards
+its sharded program.  Unlike the reference, nothing falls back: the JAX
+package steps down to the other chains tail on a device fault, while
+here a failure raises typed.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from m3_tpu_torch.encoding import m3tsz_torch as codec
 from m3_tpu_torch.parallel import mesh
+from m3_tpu_torch.x import devguard
 
 
 def decode_batch_device_sharded(words, nbits, max_points: int, default_unit: int = 1,
@@ -45,15 +48,18 @@ def decode_batch_device_sharded(words, nbits, max_points: int, default_unit: int
     topo = mesh.make_mesh(devices=devs[:n_dev])
 
     def local(w, nb):
-        return codec.decode_batch_device(w, nb, max_points, default_unit=default_unit,
-                                         device=w.device, chains=chains,
-                                         scan_major=scan_major)
+        return codec._decode_batch_device(w, nb, max_points, default_unit=default_unit,
+                                          device=w.device, chains=chains,
+                                          scan_major=scan_major)
 
-    outs = mesh.run(topo, local, mesh.split(topo, words.reshape(n_dev, step, -1)),
-                    mesh.split(topo, nbits.reshape(n_dev, step)))
-    lane_axis = 1 if scan_major else 0  # the series axis of ts, payload and meta
-    out = tuple(torch.cat([row[0][i].to(topo.first) for row in outs],
-                          dim=lane_axis if i < 3 else 0) for i in range(6))
+    def run():
+        outs = mesh.run(topo, local, mesh.split(topo, words.reshape(n_dev, step, -1)),
+                        mesh.split(topo, nbits.reshape(n_dev, step)))
+        lane_axis = 1 if scan_major else 0  # the series axis of ts, payload and meta
+        return tuple(torch.cat([row[0][i].to(topo.first) for row in outs],
+                               dim=lane_axis if i < 3 else 0) for i in range(6))
+
+    out = devguard.run_guarded("decode", run)
     if pad:
         lanes = (slice(None), slice(None, S)) if scan_major else (slice(None, S),)
         out = tuple(o[lanes] for o in out[:3]) + tuple(o[:S] for o in out[3:])

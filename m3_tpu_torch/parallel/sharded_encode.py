@@ -9,9 +9,11 @@ the outputs equal the one-device encode's bit for bit.  A series count
 that does not divide the device count is zero-padded; the padded rows
 are all invalid, emit nothing and are sliced off.
 
-Unlike the reference, nothing falls back: the JAX package guards its
-call and steps down to another placement on a device fault, while the
-port has one placement (kernel #1) and a failure raises.
+The sharded dispatch is one call of ``x.devguard``'s ``encode`` stage
+(each shard runs the codec's unguarded pass), as the reference guards
+its sharded program.  Unlike the reference, nothing falls back: the JAX
+package steps down to another placement on a device fault, while the
+port has one placement (kernel #1) and a failure raises typed.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from m3_tpu_torch.encoding import m3tsz_torch as codec
 from m3_tpu_torch.parallel import mesh
+from m3_tpu_torch.x import devguard
 
 
 def _pad_rows(x, pad: int):
@@ -61,12 +64,15 @@ def encode_batch_device_sharded(timestamps, value_bits, start, valid, unit: int 
     blocks = [mesh.split(topo, a.reshape((n_dev, step) + tuple(a.shape[1:]))) for a in args]
 
     def local(ts, vb, st, va, pb=None):
-        return codec.encode_batch_device(ts, vb, st, va, unit=unit, out_words=out_words,
-                                         prefix_bits=pb, device=ts.device)
+        return codec._encode_batch_device(ts, vb, st, va, unit=unit, out_words=out_words,
+                                          prefix_bits=pb, device=ts.device)
 
-    outs = mesh.run(topo, local, *blocks)
-    out = {k: torch.cat([row[0][k].to(topo.first) for row in outs])
-           for k in ("words", "total_bits", "fallback")}
+    def run():
+        outs = mesh.run(topo, local, *blocks)
+        return {k: torch.cat([row[0][k].to(topo.first) for row in outs])
+                for k in ("words", "total_bits", "fallback")}
+
+    out = devguard.run_guarded("encode", run)
     if pad:
         out = {k: v[:S] for k, v in out.items()}
     return out

@@ -6,7 +6,7 @@ quantiles.  The counterpart of ``m3_tpu/parallel/sharded_query.py``.
 mesh (``parallel/mesh.py``).  Each shard's devices run the per-shard
 program on their own streams:
 
-  1. the batched decode (``encoding/m3tsz_torch.decode_batch_device``,
+  1. the batched decode (``encoding/m3tsz_torch._decode_batch_device``,
      whose field extraction is kernel #2 on a card);
   2. ``rate`` over the decoded (series x step) matrix;
   3. the partial by-bucket sum (kernel #3 above 64 buckets);
@@ -42,7 +42,7 @@ def decode_to_step_series(words, nbits, max_points: int):
     ts = int64 max (outside every window) and NaN.  Returns contiguous
     (S, P) ts and values and the (S,) error flags (decode error or
     precision loss)."""
-    ts, payload, meta, err, prec, _ann = codec.decode_batch_device(
+    ts, payload, meta, err, prec, _ann = codec._decode_batch_device(
         words, nbits, max_points, device=words.device)
     meta = meta.to(torch.int64)
     valid = (meta & 16) != 0

@@ -4,11 +4,16 @@ node.  The port's counterpart of ``m3_tpu/server/assembly.py``.
 Equivalent of the reference's monolithic startup
 (`src/dbnode/server/server.go:171 Run`: config → pools → topology →
 storage.NewDatabase → servers → bootstrap; and the query side
-`src/query/server/query.go:195`): build the instrument registry, the
-Database (with namespaces from config), the control plane (KV, the
-topology watcher and shard migrator), bootstrap (local, then from
-peers), the RPC listener, the mediator loop, and the HTTP and admin
-APIs.  `Assembly.close()` tears down in reverse order.
+`src/query/server/query.go:195`): set the device budget and the stage
+breakers' knobs, build the instrument registry, the Database (with
+namespaces from config), the control plane (KV, the topology watcher and
+shard migrator), bootstrap (local, then from peers), the RPC listener,
+self-monitoring and the SLO-burn controller, the mediator loop, and the
+HTTP and admin APIs.  `Assembly.close()` tears down in reverse order.
+
+The controller registers the reference's actuators but one: the
+``device_fallback`` actuator (``devguard.force_fallback``) switches
+guarded stages onto their fallbacks, and the port's stages have none.
 
 The node runs on ``device`` (None = CUDA; raises without a card).  The
 reference's process-global env seams have no counterpart:
@@ -47,23 +52,7 @@ UNPORTED = (
      "m3_tpu/query/remote.py"),
     ("query.remotes", lambda c: bool(c.query.remotes),
      "m3_tpu/query/fanout.py and m3_tpu/query/remote.py"),
-    ("selfmon.enabled", lambda c: c.selfmon.enabled,
-     "m3_tpu/instrument/selfmon.py"),
-    ("controller.enabled", lambda c: c.controller.enabled,
-     "m3_tpu/x/controller.py"),
-    ("device.mem_budget", lambda c: _mem_budget(c) != 0,
-     "m3_tpu/x/membudget.py"),
-    ("device.breaker_failures/breaker_reset",
-     lambda c: (c.device.breaker_failures, c.device.breaker_reset)
-     != (5, "10s"),
-     "m3_tpu/x/devguard.py"),
 )
-
-
-def _mem_budget(cfg: NodeConfig) -> int:
-    from m3_tpu_torch.x.diskbudget import parse_bytes
-
-    return parse_bytes(cfg.device.mem_budget)
 
 
 def refuse_unported(cfg: NodeConfig) -> None:
@@ -98,6 +87,8 @@ class Assembly:
     migrator: object | None = None   # storage.migration.ShardMigrator
     downsampler: object | None = None   # coordinator.downsample.Downsampler
     checkpointer: object | None = None  # aggregator.checkpoint.AggregatorCheckpointer
+    selfmon: object | None = None       # instrument.selfmon.SelfMonitor
+    controller: object | None = None    # x.controller.Controller
 
     @property
     def port(self) -> int | None:
@@ -179,6 +170,68 @@ class Assembly:
         self.close()
 
 
+def _build_controller(cfg: NodeConfig, asm: Assembly, db, admission, scope):
+    """The SLO-burn controller in the reference's order of actuators and
+    bindings, less ``device_fallback`` (see the module docstring)."""
+    from m3_tpu_torch.x import controller as xctl
+    from m3_tpu_torch.x import membudget as _mb
+
+    ccfg = cfg.controller
+    slo = asm.selfmon.slo
+    known = set(slo.rules())
+    reg = xctl.ActuatorRegistry()
+    bindings: list = []
+
+    def _bind(rule: str, acts: list, name: str = "", **kw) -> None:
+        if rule and rule in known and acts:
+            bindings.append(xctl.Binding(
+                rule=rule, actuators=tuple(acts),
+                name=name or rule,
+                fire_ticks=ccfg.fire_ticks,
+                clear_ticks=ccfg.clear_ticks,
+                clear_burn=ccfg.clear_burn,
+                hold_ticks=ccfg.hold_ticks, **kw))
+
+    slot_acts = []
+    if admission is not None:
+        reg.register(xctl.admission_actuator(
+            admission, floor=ccfg.query_floor, step=ccfg.query_step))
+        slot_acts = ["query_slots"]
+    _bind(ccfg.query_rule, slot_acts, name="query-burn")
+    _bind(ccfg.ingest_rule, slot_acts, name="ingest-burn")
+    dev_acts = []
+    if asm.checkpointer is not None:
+        dev_acts.append(reg.register(
+            xctl.checkpoint_actuator(asm.checkpointer)).name)
+    budget_b = _mb.budget()
+    if budget_b > 0:
+        floor_b = int(budget_b * ccfg.mem_floor_frac)
+        step_b = max(1, (budget_b - floor_b) // ccfg.mem_steps)
+        dev_acts.append(reg.register(xctl.membudget_actuator(
+            floor_bytes=floor_b, step_bytes=step_b)).name)
+    _bind(ccfg.device_rule, dev_acts, name="device-burn")
+    if asm.migrator is not None:
+        reg.register(xctl.rebalance_actuator(asm.migrator))
+        _bind(ccfg.node_rule, ["rebalance"], name="node-burn",
+              sustain_window=ccfg.sustain_window,
+              sustain_burn=ccfg.sustain_burn)
+    if cfg.disk.enabled:
+        # Disk-burn → a cleanup PULSE: the watermark gate sheds ingest on
+        # its own; the controller's job is to force a reclaim pass the
+        # cadence wouldn't run yet.
+        reg.register(xctl.emergency_cleanup_actuator(
+            lambda: db.cleanup(_time.time_ns())))
+        _bind(ccfg.disk_rule, ["emergency_cleanup"], name="disk-burn")
+    return xctl.Controller(
+        reg, bindings, burn_source=slo.status,
+        instrument=scope,
+        min_interval_s=parse_duration(ccfg.min_action_interval) / 1e9,
+        history=xctl.BurnHistory(
+            slo.engine,
+            metric=f"{cfg.metrics_prefix}_slo_burn",
+            deadline_s=parse_duration(ccfg.history_deadline) / 1e9))
+
+
 def namespace_options(ns_cfg) -> NamespaceOptions:
     kw = {}
     # cardinality sizing: 0 keeps the storage defaults; a node serving
@@ -218,10 +271,19 @@ def run_node(source, start_mediator: bool | None = None,
             "coordinator.downsample=true requires run_node(..., ruleset=...)"
         )
     refuse_unported(cfg)
-    # Disk ledger: armed before the Database exists so the very first
-    # mediator tick refreshes real watermarks.  reset() when disabled —
-    # the ledger is process-global and a prior in-process node's
-    # configuration must not leak into this one.
+    # Device-boundary knobs FIRST: the memory budget must be installed
+    # before any arena/buffer reserves against it, and the stage
+    # breakers bind their thresholds at first guarded call.
+    from m3_tpu_torch.x import devguard as _devguard, membudget as _membudget
+
+    _membudget.set_budget(cfg.device.mem_budget)
+    _devguard.configure(
+        failures=cfg.device.breaker_failures,
+        reset_s=parse_duration(cfg.device.breaker_reset) / 1e9)
+    # Disk ledger next (membudget's twin): armed before the Database
+    # exists so the very first mediator tick refreshes real watermarks.
+    # reset() when disabled — the ledger is process-global and a prior
+    # in-process node's configuration must not leak into this one.
     from m3_tpu_torch.x import diskbudget as _diskbudget
 
     if cfg.disk.enabled:
@@ -265,6 +327,18 @@ def run_node(source, start_mediator: bool | None = None,
     namespaces = {
         name: namespace_options(ns) for name, ns in cfg.db.namespaces.items()
     }
+    if cfg.selfmon.enabled and cfg.selfmon.namespace not in namespaces:
+        # Auto-provision the reserved self-monitoring namespace as an
+        # ordinary db.namespaces entry (declare it in config to tune
+        # retention/blocks).  num_shards follows the serving namespace
+        # so a placement installed by the topology watcher scopes it
+        # identically — selfmon writes cross the same ownership gate
+        # as user ingest.
+        base = cfg.db.namespaces.get(
+            cfg.coordinator.namespace if cfg.coordinator is not None
+            else "default")
+        namespaces[cfg.selfmon.namespace] = NamespaceOptions(
+            num_shards=base.num_shards if base is not None else 4)
     db = Database(
         DatabaseOptions(
             root=cfg.db.root, commitlog_enabled=cfg.db.commitlog_enabled
@@ -390,6 +464,34 @@ def run_node(source, start_mediator: bool | None = None,
                 # node boots fresh.
                 asm.checkpointer.restore()
 
+        # Self-monitoring BEFORE the mediator: the scrape task rides
+        # the tick loop, and its SLO evaluator binds the selfmon
+        # namespace engine at construction.
+        if cfg.selfmon.enabled:
+            from m3_tpu_torch.instrument.selfmon import SelfMonitor
+            from m3_tpu_torch.query.slo import default_rules, rule_from_dict
+
+            rules = (default_rules(cfg.metrics_prefix)
+                     if cfg.selfmon.default_rules else [])
+            rules += [rule_from_dict(r) for r in cfg.selfmon.rules]
+            asm.selfmon = SelfMonitor(
+                db, registry,
+                namespace=cfg.selfmon.namespace,
+                instance=(cfg.selfmon.instance or cfg.db.instance_id
+                          or "self"),
+                budget=cfg.selfmon.budget,
+                peers=cfg.selfmon.peers,
+                scrape_timeout_s=parse_duration(
+                    cfg.selfmon.scrape_timeout) / 1e9,
+                slo_rules=rules,
+                slo_deadline_s=parse_duration(
+                    cfg.selfmon.slo_deadline) / 1e9,
+                instrument=scope,
+            )
+
+        # Admission is shared by the HTTP front door and the
+        # controller's query_slots actuator — build it before either
+        # consumer exists.
         admission = None
         if cfg.coordinator is not None:
             from m3_tpu_torch.x.admission import AdmissionController
@@ -399,6 +501,15 @@ def run_node(source, start_mediator: bool | None = None,
                 max_queue=cfg.query.max_queue,
                 queue_timeout_s=parse_duration(cfg.query.queue_timeout) / 1e9,
             )
+
+        # The self-healing control plane BEFORE the mediator (its pass
+        # rides the tick loop right after the selfmon stage, acting on
+        # the verdicts evaluated the same tick).  Bindings resolve by
+        # rule NAME against the evaluator's configured rule set
+        # (slo.rules()) — an unconfigured name simply does not bind.
+        if (cfg.controller.enabled and asm.selfmon is not None
+                and getattr(asm.selfmon, "slo", None) is not None):
+            asm.controller = _build_controller(cfg, asm, db, admission, scope)
 
         # Disk-pressure stage for the mediator: refresh the ledger every
         # pass; at/above LOW run cleanup EAGERLY instead of waiting out
@@ -428,6 +539,10 @@ def run_node(source, start_mediator: bool | None = None,
                 checkpointer=asm.checkpointer,
                 checkpoint_every=(cfg.coordinator.checkpoint_every
                                   if cfg.coordinator is not None else 0),
+                selfmon=asm.selfmon,
+                selfmon_every=cfg.selfmon.every,
+                controller=asm.controller,
+                controller_every=cfg.controller.every,
                 diskpressure=_disk_stage,
                 instrument=scope,
             )
@@ -443,6 +558,8 @@ def run_node(source, start_mediator: bool | None = None,
                 slow_query_fraction=cfg.query.slow_query_fraction,
                 checkpointer=asm.checkpointer,
                 migrator=asm.migrator,
+                selfmon=asm.selfmon,
+                controller=asm.controller,
             )
 
             # Admission/slow-query observability rides the scrape-time

@@ -25,17 +25,19 @@ Read-path overload contract (`/api/v1/query`, `/api/v1/query_range`,
   deadline land in the slow-query log (`/health` ``query.slow`` +
   ``slow_query_total`` on /metrics) with per-phase timings.
 * ``namespace=`` on ``/api/v1/query``/``query_range`` evaluates over
-  another configured namespace's LOCAL storage (unknown names 400).
+  another configured namespace's LOCAL storage (unknown names 400); the
+  ``_m3_selfmon`` self-monitoring history is queried this way.
 
 The port's counterpart of ``m3_tpu/server/http_api.py``: the same routes,
 status codes and response bodies over the port's ``Database`` and
 ``Engine`` (on the database's device).  Not ported here, and answered
 501 with the missing module named: the Graphite routes (``/render``,
-``/metrics/find``: ``query/graphite.py``) and ``/debug/dump``
-(``instrument/debug.py``).  There is no query federation
+``/metrics/find``: ``query/graphite.py``).  There is no query federation
 (``query/fanout.py``, ``query/remote.py``): the engine reads the local
-database only.  ``/health`` carries the sections this package has and
-lists the others under ``absent``.
+database only.  One status differs on purpose: a typed device error
+(``x.devguard.DeviceError``) answers **503 + Retry-After** — the port
+refuses a write the card cannot take (it has no host staging), and a
+client must retry it, not drop it as a 4xx tells it to.
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ from m3_tpu_torch.storage.limits import QueryLimitExceeded
 from m3_tpu_torch.x import deadline as xdeadline
 from m3_tpu_torch.x.admission import AdmissionController, QueryShedError
 from m3_tpu_torch.x.deadline import Deadline, DeadlineExceeded
+from m3_tpu_torch.x.devguard import DeviceError
 
 _DUR_RE = re.compile(r"^(\d+(?:\.\d+)?)([smhdwy]|ms)$")
 
@@ -69,10 +72,7 @@ _DUR_RE = re.compile(r"^(\d+(?:\.\d+)?)([smhdwy]|ms)$")
 _NOT_PORTED = {
     "/render": "m3_tpu/query/graphite.py",
     "/metrics/find": "m3_tpu/query/graphite.py",
-    "/debug/dump": "m3_tpu/instrument/debug.py",
 }
-# /health sections of the reference whose subsystem is not ported
-_ABSENT_HEALTH = ("device.stages", "device.membudget", "slo", "controller")
 
 
 def _parse_time(v: str) -> int:
@@ -113,9 +113,9 @@ class _Handler(BaseHTTPRequestHandler):
         self._json(code, {"status": "error", "error": msg}, headers)
 
     def _overload_status(self, e: Exception) -> None:
-        """The typed read-path overload errors → HTTP status (see
-        module docstring: 429 limit / 503 shed / 504 deadline) — these
-        are server-side failures, never a 400."""
+        """The typed overload and device errors → HTTP status (see
+        module docstring: 429 limit / 503 shed / 504 deadline / 503
+        device) — these are server-side failures, never a 400."""
         if isinstance(e, QueryLimitExceeded):
             return self._error(429, str(e))
         if isinstance(e, QueryShedError):
@@ -125,6 +125,8 @@ class _Handler(BaseHTTPRequestHandler):
                          str(max(1, math.ceil(e.retry_after_s)))})
         if isinstance(e, DeadlineExceeded):
             return self._error(504, str(e))
+        if isinstance(e, DeviceError):
+            return self._error(503, str(e), headers={"Retry-After": "1"})
         raise e
 
     def _deadline(self, q) -> Deadline:
@@ -154,6 +156,8 @@ class _Handler(BaseHTTPRequestHandler):
                 return self._traces(q)
             if u.path == "/api/v1/debug/faults":
                 return self._faults()
+            if u.path == "/debug/dump":
+                return self._debug_dump(q)
             if u.path in _NOT_PORTED:
                 return self._error(
                     501, f"{u.path}: {_NOT_PORTED[u.path]} is not ported")
@@ -167,7 +171,8 @@ class _Handler(BaseHTTPRequestHandler):
             if u.path == "/api/v1/series":
                 return self._series(q)
             return self._error(404, f"unknown path {u.path}")
-        except (QueryLimitExceeded, QueryShedError, DeadlineExceeded) as e:
+        except (QueryLimitExceeded, QueryShedError, DeadlineExceeded,
+                DeviceError) as e:
             return self._overload_status(e)
         except Exception as e:  # noqa: BLE001 — API boundary
             return self._error(400, str(e))
@@ -189,7 +194,8 @@ class _Handler(BaseHTTPRequestHandler):
             if u.path == "/api/v1/debug/faults":
                 return self._faults(json.loads(self._body() or b"{}"))
             return self._error(404, f"unknown path {u.path}")
-        except (QueryLimitExceeded, QueryShedError, DeadlineExceeded) as e:
+        except (QueryLimitExceeded, QueryShedError, DeadlineExceeded,
+                DeviceError) as e:
             return self._overload_status(e)
         except Exception as e:  # noqa: BLE001
             return self._error(400, str(e))
@@ -265,8 +271,8 @@ class _Handler(BaseHTTPRequestHandler):
             q = self.ctx.query_status()
             from m3_tpu_torch.x.breaker import all_breakers
 
-            # peer breakers only (the reference's stage:* breakers
-            # belong to x/devguard)
+            # peer breakers only: stage:* breakers (x/devguard) report
+            # through the `device` section below, not the query view
             breakers = {name: br.state
                         for name, br in all_breakers().items()
                         if br.kind == "peer"}
@@ -277,13 +283,36 @@ class _Handler(BaseHTTPRequestHandler):
                 out["query"] = q
         except Exception:  # noqa: BLE001 — health must never 500
             pass
-        # Device-boundary visibility: the arena checkpointer (the
-        # reference's devguard stages and membudget ledger are not
-        # ported; see ``absent``).
+        # Device-boundary visibility: per-stage guard counters +
+        # breaker states (x/devguard), the device budget ledger
+        # (x/membudget), and the arena checkpoint driver — the
+        # operator's window into a degraded device path.  Health reports
+        # DEGRADATION, not activity: a stage appears once it has errors
+        # or a non-closed breaker (full happy-path counters live on
+        # /metrics), so a clean node's health stays noise-free.
         try:
+            from m3_tpu_torch.x import devguard, membudget
+
+            dev = devguard.status()
+            mb = membudget.snapshot()
+            section = {}
+            degraded = {
+                st: doc for st, doc in dev["stages"].items()
+                if doc.get("errors")
+                or doc.get("breaker", "closed") != "closed"
+            }
+            if degraded:
+                section["stages"] = degraded
+            # used_bytes alone is NOT a signal — every node's buffers
+            # reserve bytes; the ledger is health-worthy only once a
+            # budget is configured (or something was rejected before
+            # one was)
+            if mb["budget_bytes"] or mb["rejected_total"]:
+                section["membudget"] = mb
             if self.ctx.checkpointer is not None:
-                out["device"] = {
-                    "checkpoint": self.ctx.checkpointer.status()}
+                section["checkpoint"] = self.ctx.checkpointer.status()
+            if section:
+                out["device"] = section
         except Exception:  # noqa: BLE001 — health must never 500
             pass
         # Disk-capacity visibility (x/diskbudget + persist/capacity):
@@ -311,9 +340,41 @@ class _Handler(BaseHTTPRequestHandler):
                 out["disk"] = {"enabled": False, "capacity_errors": caps}
         except Exception:  # noqa: BLE001 — health must never 500
             pass
-        # the reference's sections whose subsystem this package lacks
-        out["absent"] = list(_ABSENT_HEALTH)
+        # SLO burn-rate verdicts over the self-monitored history
+        # (query/slo.py: cached last evaluation, no queries run here)
+        # plus a compact selfmon scrape summary.  Present only when
+        # rules are configured — a node that only stores, never
+        # judges, keeps a noise-free health document.
+        try:
+            if self.ctx.selfmon is not None:
+                slo = self.ctx.selfmon.health_slo()
+                if slo is not None:
+                    out["slo"] = slo
+        except Exception:  # noqa: BLE001 — health must never 500
+            pass
+        # Self-healing controller: configuration + per-binding state +
+        # actuator positions + the recent action tail (x/controller;
+        # cheap cached state, no queries run here).
+        try:
+            if self.ctx.controller is not None:
+                out["controller"] = self.ctx.controller.status()
+        except Exception:  # noqa: BLE001 — health must never 500
+            pass
         return self._json(200, out)
+
+    def _debug_dump(self, q):
+        """One-stop debug zip: thread stacks, a short CPU profile, a
+        heap view, host info + metrics snapshot (reference
+        x/debug/debug.go's pprof bundle served over HTTP)."""
+        from m3_tpu_torch.instrument.debug import debug_bundle
+
+        seconds = min(float(q.get("seconds", ["0.5"])[0]), 10.0)
+        data = debug_bundle(self.ctx.registry, cpu_seconds=seconds)
+        self.send_response(200)
+        self.send_header("Content-Type", "application/zip")
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
 
     def _metrics(self):
         """Prometheus text exposition of the process registry (reference
@@ -617,17 +678,20 @@ def _fmt(v: float) -> str:
 class ApiContext:
     """What the handlers serve: the database, its engine (on the
     database's device), admission, deadlines and the latency
-    histograms, and the shard migrator whose status ``/health`` serves.
-    The reference's federation, selfmon and controller hooks have no
-    port and no parameter here."""
+    histograms, the shard migrator, the self-monitor and the controller
+    whose status ``/health`` serves.  The reference's federation hooks
+    have no port and no parameter here."""
 
     def __init__(self, db: Database, namespace: str = "default",
                  downsampler=None, registry=None, tracer=None,
                  admission: AdmissionController | None = None,
                  query_timeout_s: float = 30.0,
                  slow_query_fraction: float = 0.75,
-                 metrics_scope=None, checkpointer=None, migrator=None):
+                 metrics_scope=None, checkpointer=None, migrator=None,
+                 selfmon=None, controller=None):
         self.db = db
+        self.selfmon = selfmon  # instrument.selfmon.SelfMonitor | None
+        self.controller = controller  # x.controller.Controller | None
         self.migrator = migrator  # storage.migration.ShardMigrator | None
         self.namespace = namespace
         self.downsampler = downsampler

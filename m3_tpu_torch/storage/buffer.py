@@ -20,8 +20,14 @@ device: the host routes them to a per-block overflow list, flushed as a
 higher fileset volume (the reference's cold flush,
 `storage/coldflush.go` + `fs_merge_with_mem.go`).
 
-Unlike the JAX package, a failed device append or drain raises: there is
-no host staging or host drain to fall back to.
+The ring reserves its bytes with ``x.membudget`` before it allocates
+(and its ``_grow`` resizes the reservation first); every append and
+every drain runs behind ``x.devguard``'s ``storage.buffer_append`` and
+``storage.buffer_drain`` stages.  Unlike the JAX package, a failed device
+append or drain raises typed: there is no host staging or host drain to
+fall back to.  The append runs before any sample of the batch is routed
+anywhere, so a batch the card refuses leaves the buffer as it was, and
+the caller does not acknowledge it.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import numpy as np
 import torch
 
 from m3_tpu_torch import resolve_device
+from m3_tpu_torch.x import devguard, membudget
 
 I64_MAX = int(np.iinfo(np.int64).max)
 
@@ -157,8 +164,22 @@ class ShardBuffer:
         self.sample_capacity = sample_capacity
         self.slot_capacity = slot_capacity
         self.device = resolve_device(device)
-        self.state = buffer_init(num_windows, sample_capacity, slot_capacity,
-                                 self.device)
+        # Admission before allocation: an over-budget ring rejects
+        # typed (DeviceBudgetExceeded) here; released automatically when
+        # this buffer is collected.
+        self._mem = membudget.reserve(
+            "storage.buffer",
+            membudget.buffer_bytes(num_windows, sample_capacity),
+            owner=self)
+        # the ring's allocation belongs to the stage that fills it: a
+        # card that refuses it counts against storage.buffer_append
+        try:
+            self.state = devguard.run_guarded(
+                "storage.buffer_append", lambda: buffer_init(
+                    num_windows, sample_capacity, slot_capacity, self.device))
+        except BaseException:
+            self._mem.release()
+            raise
         self._n_host = np.zeros(num_windows, np.int64)
         # block_start -> ring row for open windows
         self.open_blocks: dict[int, int] = {}
@@ -184,6 +205,11 @@ class ShardBuffer:
         Returns count of samples routed to the cold path."""
         block_starts = (ts // self.block_size) * self.block_size
         warm = np.isin(block_starts, list(open_starts))
+        if warm.any():
+            # the device append first: a batch it refuses is routed
+            # nowhere (no host staging — the caller acknowledges nothing)
+            self._append_warm(slots[warm], ts[warm], vals[warm],
+                              block_starts[warm])
         ncold = int((~warm).sum())
         if ncold:
             for bs in np.unique(block_starts[~warm]):
@@ -191,31 +217,43 @@ class ShardBuffer:
                 self.cold.setdefault(int(bs), []).append(
                     (slots[sel].copy(), ts[sel].copy(), vals[sel].copy())
                 )
-        if warm.any():
-            wslots, wts, wvals = slots[warm], ts[warm], vals[warm]
-            wstarts = block_starts[warm]
-            self._version += 1  # sorted snapshots are now stale
-            rows = ((wstarts // self.block_size)
-                    % self.num_windows).astype(np.int32)
-            for bs in np.unique(wstarts):
-                self.open_blocks[int(bs)] = self._row_for(int(bs))
-            per_row = np.bincount(rows, minlength=self.num_windows)
-            if (self._n_host + per_row).max() > self.sample_capacity:
-                self._grow(int((self._n_host + per_row).max()))
-            self.state = buffer_append(
+        return ncold
+
+    def _append_warm(self, wslots, wts, wvals, wstarts) -> None:
+        """One batch of warm samples into the device ring, behind the
+        ``storage.buffer_append`` stage (the ring's growth inside it, as
+        the reference grows inside its guarded append); the host shadows
+        commit only after the append succeeds."""
+        rows = ((wstarts // self.block_size) % self.num_windows).astype(np.int32)
+        per_row = np.bincount(rows, minlength=self.num_windows)
+        needed = int((self._n_host + per_row).max())
+
+        def append():
+            if needed > self.sample_capacity:
+                self._grow(needed)
+            return buffer_append(
                 self.state,
                 self._dev(rows),
                 self._dev(wslots.astype(np.int32)),
                 self._dev(wts.astype(np.int64)),
                 self._dev(wvals.astype(np.float64)),
             )
-            self._n_host += per_row
-        return ncold
+
+        self._version += 1  # sorted snapshots are now stale
+        self.state = devguard.run_guarded("storage.buffer_append", append)
+        for bs in np.unique(wstarts):
+            self.open_blocks[int(bs)] = self._row_for(int(bs))
+        self._n_host += per_row
 
     def _grow(self, needed: int) -> None:
         new_cap = self.sample_capacity
         while new_cap < needed:
             new_cap *= 2
+        # Admit the growth BEFORE padding: an over-budget grow raises
+        # typed inside the guarded append, which refuses the batch (and a
+        # pad the card refuses puts the reservation back).
+        old = self._mem.nbytes
+        self._mem.resize(membudget.buffer_bytes(self.num_windows, new_cap))
         pad = new_cap - self.sample_capacity
         st = self.state
         W = self.num_windows
@@ -224,12 +262,16 @@ class ShardBuffer:
             return torch.cat([col, torch.full((W, pad), fill, dtype=col.dtype,
                                               device=col.device)], dim=1)
 
-        self.state = BufferState(
-            slot=_pad(st.slot, self.slot_capacity),
-            ts=_pad(st.ts, I64_MAX),
-            val=_pad(st.val, 0.0),
-            n=st.n,
-        )
+        try:
+            self.state = BufferState(
+                slot=_pad(st.slot, self.slot_capacity),
+                ts=_pad(st.ts, I64_MAX),
+                val=_pad(st.val, 0.0),
+                n=st.n,
+            )
+        except BaseException:
+            self._mem.resize(old)
+            raise
         self.sample_capacity = new_cap
 
     def _drain_row(self, row: int):
@@ -239,26 +281,35 @@ class ShardBuffer:
         Only the first ``n[row]`` lanes are sorted: every lane past them
         is a sentinel (slot = capacity), which sorts after all of them and
         which the keep mask drops, so the kept samples are those of the
-        whole row's sort (``buffer_drain``)."""
+        whole row's sort (``buffer_drain``).  Runs behind the
+        ``storage.buffer_drain`` stage, with the ``device.transfer``
+        point before the copy to the host."""
         m = int(min(self._n_host[row], self.sample_capacity))
-        st = self.state
-        s_slot, s_ts, s_val, first = _sort_window(
-            st.slot[row, :m], st.ts[row, :m], st.val[row, :m])
-        keep = first & (s_slot < self.slot_capacity)
-        packed = torch.stack([s_slot.to(torch.int64), s_ts,
-                              s_val.view(torch.int64)])[:, keep]
-        host = packed.cpu().numpy()
+
+        def drain():
+            st = self.state
+            s_slot, s_ts, s_val, first = _sort_window(
+                st.slot[row, :m], st.ts[row, :m], st.val[row, :m])
+            keep = first & (s_slot < self.slot_capacity)
+            packed = torch.stack([s_slot.to(torch.int64), s_ts,
+                                  s_val.view(torch.int64)])[:, keep]
+            devguard.transfer_point("storage.buffer_drain")
+            return packed.cpu().numpy()
+
+        host = devguard.run_guarded("storage.buffer_drain", drain)
         return (host[0].astype(np.int32), host[1].copy(),
                 host[2].view(np.float64).copy())
 
     def drain(self, block_start: int):
         """Seal one open block: device sort+dedupe, then host-side
         ragged split.  Returns (slots, ts, vals) sorted by (slot, ts)
-        with duplicates resolved last-write-wins; clears the window."""
-        row = self.open_blocks.pop(block_start, None)
+        with duplicates resolved last-write-wins; clears the window (only
+        once the drain succeeded: a failed drain leaves it open)."""
+        row = self.open_blocks.get(block_start)
         if row is None:
             return _empty()
         out = self._drain_row(row)
+        del self.open_blocks[block_start]
         self._reset_row(row)
         return out
 

@@ -19,7 +19,8 @@ is logged and counted (``*_errors``) and the pass goes on, as in the
 reference; callers that must not miss a failure read those counters and
 the returned stats.  :meth:`close` joins the loop thread, so a pass in
 flight ends before the caller frees the database.  The reference's
-selfmon and controller stages have no port yet and no parameter here.
+optional ``profiler`` hook (a ``TriggeringProfiler`` only its own test
+attaches) is left out.
 """
 
 from __future__ import annotations
@@ -55,6 +56,10 @@ class Mediator:
         downsampler=None,
         checkpointer=None,
         checkpoint_every: int = 0,
+        selfmon=None,
+        selfmon_every: int = 1,
+        controller=None,
+        controller_every: int = 1,
         diskpressure=None,
         instrument=None,
     ):
@@ -84,6 +89,18 @@ class Mediator:
         # state; 0 disables the periodic save.
         self.checkpointer = checkpointer
         self.checkpoint_every = checkpoint_every
+        # Optional instrument.selfmon.SelfMonitor: the self-scrape
+        # (registry + fleet peers → the _m3_selfmon namespace through
+        # the real write path) and the SLO burn-rate evaluation ride
+        # the maintenance loop on their own cadence.
+        self.selfmon = selfmon
+        self.selfmon_every = max(1, selfmon_every)
+        # Optional x.controller.Controller: the self-healing pass reads
+        # the verdicts the selfmon stage just refreshed and acts through
+        # its typed actuator registry — sensor before controller, every
+        # pass, by construction.
+        self.controller = controller
+        self.controller_every = max(1, controller_every)
         # Optional disk-pressure stage (assembly closure over
         # x.diskbudget + Database.cleanup): refreshes the disk ledger
         # every pass and runs cleanup EAGERLY at/above the LOW
@@ -119,8 +136,9 @@ class Mediator:
             if self._ticks % self.cleanup_every == 0:
                 stats["cleanup"] = self.db.cleanup(now)
             if self.diskpressure is not None:
-                # After flush/snapshot/cleanup: their writes are the
-                # bytes being measured.
+                # After flush/snapshot/cleanup (their writes are the
+                # bytes being measured), before selfmon (so this pass's
+                # scrape stores the watermark the ledger just computed).
                 try:
                     stats["disk"] = self.diskpressure(now)
                 except Exception:  # noqa: BLE001 — a failing ledger
@@ -144,6 +162,32 @@ class Mediator:
                     _LOG.exception("mediator: downsampler flush failed")
                     if self._scope is not None:
                         self._scope.counter("downsample_flush_errors").inc()
+            if (self.selfmon is not None
+                    and self._ticks % self.selfmon_every == 0):
+                # Self-scrape AFTER the flush stages so the cycle's
+                # samples record this tick's flush counters; the writes
+                # land in open buffers and seal on a later tick like
+                # any other ingest.
+                try:
+                    stats["selfmon"] = self.selfmon.tick(now)
+                except Exception:  # noqa: BLE001 — a failing scrape
+                    # must not disable flush/snapshot/cleanup; counted
+                    # so a silently-dead selfmon is visible on /metrics
+                    _LOG.exception("mediator: selfmon tick failed")
+                    if self._scope is not None:
+                        self._scope.counter("selfmon_tick_errors").inc()
+            if (self.controller is not None
+                    and self._ticks % self.controller_every == 0):
+                # Self-healing AFTER selfmon so each pass acts on the
+                # verdicts evaluated THIS tick, never last tick's.
+                try:
+                    stats["controller"] = self.controller.tick(now)
+                except Exception:  # noqa: BLE001 — a failing control
+                    # pass must not disable maintenance; counted so a
+                    # silently-dead controller is visible on /metrics
+                    _LOG.exception("mediator: controller tick failed")
+                    if self._scope is not None:
+                        self._scope.counter("controller_tick_errors").inc()
             if (self.checkpointer is not None and self.checkpoint_every > 0
                     and self._ticks % self.checkpoint_every == 0):
                 try:

@@ -8,25 +8,35 @@ counterpart of ``m3_tpu/x/__init__.py``.
 * ``deadline`` — end-to-end query deadlines + cooperative cancellation.
 * ``admission`` — bounded concurrent-query slots + wait queue.
 * ``breaker`` — per-peer circuit breakers in one process registry.
-* ``diskbudget`` — the per-root disk ledger with watermarks.
+* ``devguard`` — the device-boundary seam: typed ``DeviceError``
+  classification over torch/CUDA errors, per-stage counters and
+  breakers (``run_guarded``, no fallback), and the
+  ``device.compile``/``device.dispatch``/``device.transfer`` faultpoints.
+* ``membudget`` — the process's device-memory ledger: arenas, series
+  buffers and big transient stage buffers reserve bytes BEFORE they
+  allocate; over ``device.mem_budget`` rejects typed.
+* ``diskbudget`` — membudget's disk twin: the per-root disk ledger with
+  watermarks.
+* ``controller``, ``chaos`` — the SLO-burn control loop and the seeded
+  fault timeline (imported by their users, not here).
 
 ``register_metrics(registry)`` mirrors the fault, retry, deadline,
-breaker and disk counters into an instrument registry at scrape time,
-so a node's ``/metrics`` exposes them.  The reference's device-boundary
-gauges (``devguard``, ``membudget``) and its XLA-only env seams
-(``lockcheck``, ``tracewatch``, ``hopwatch``) have no port yet and are
-not mirrored.
+breaker, device-guard, device-memory and disk counters into an
+instrument registry at scrape time, so a node's ``/metrics`` exposes
+them.  The reference's XLA-only env seams (``lockcheck``,
+``tracewatch``, ``hopwatch``) have no port and are not mirrored.
 """
 
 from __future__ import annotations
 
 from m3_tpu_torch.x import breaker, deadline, fault, retry
+from m3_tpu_torch.x import devguard, membudget  # noqa: F401  (device guard)
 
 
 def register_metrics(registry, prefix: str = "") -> object:
     """Register a scrape-time collector mirroring the fault, retry,
-    deadline, breaker and disk counters into ``registry`` gauges (tagged
-    by point/retrier/peer/component name).  Returns the collector so
+    deadline, breaker, device and disk counters into ``registry`` gauges
+    (tagged by point/retrier/peer/stage/component name).  Returns the collector so
     callers with a shutdown path can ``registry.unregister_collector``
     it."""
     scope = registry.scope(prefix)
@@ -49,6 +59,25 @@ def register_metrics(registry, prefix: str = "") -> object:
         for name, value in breaker.counters().items():
             peer, _, key = name.rpartition(".")
             scope.tagged({"peer": peer}).gauge(f"breaker.{key}").update(value)
+        # device-guard stage counters: device.<stage>.calls /
+        # .errors.<kind> (stage names contain dots — split on the known
+        # suffixes, the devguard.status() rule)
+        for name, value in devguard.counters().items():
+            rest = name[len("device."):]
+            if rest.endswith(".calls"):
+                scope.tagged({"stage": rest[:-len(".calls")]}).gauge(
+                    "device_guard_calls").update(value)
+            else:
+                st, _, kind = rest.rpartition(".errors.")
+                if st:
+                    scope.tagged({"stage": st, "kind": kind}).gauge(
+                        "device_error_total").update(value)
+        mb = membudget.snapshot()
+        scope.gauge("device_mem_budget_bytes").update(mb["budget_bytes"])
+        scope.gauge("device_mem_used_bytes").update(mb["used_bytes"])
+        scope.gauge("device_mem_peak_bytes").update(mb["peak_bytes"])
+        scope.gauge("device_mem_rejected_total").update(
+            mb["rejected_total"])
         # disk ledger + typed-capacity counters (lazy: diskbudget pulls
         # persist.capacity in, and most registry users never touch disk)
         from m3_tpu_torch.persist import capacity

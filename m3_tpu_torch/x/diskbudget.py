@@ -42,31 +42,12 @@ through the controller's ``emergency_cleanup`` actuator.
 from __future__ import annotations
 
 import os
-import re
 import threading
 from pathlib import Path
 from typing import Dict, Optional
 
 from m3_tpu_torch.persist.capacity import DiskCapacityError
-
-_SIZE_RE = re.compile(r"^(\d+(?:\.\d+)?)\s*([KMGT]i?)?B?$", re.IGNORECASE)
-_SIZE_MULT = {None: 1, "K": 1 << 10, "M": 1 << 20, "G": 1 << 30,
-              "T": 1 << 40}
-
-
-def parse_bytes(v) -> int:
-    """"512M" / "2GiB" / 1048576 → bytes (binary units; 0 = unlimited).
-    A copy of ``m3_tpu/x/membudget.py``'s parser: the device-memory
-    ledger itself is not ported."""
-    if isinstance(v, (int, float)):
-        return int(v)
-    m = _SIZE_RE.match(str(v).strip())
-    if not m:
-        raise ValueError(
-            f"bad byte size {v!r} (want e.g. '512M', '2GiB', or bytes)")
-    suffix = m.group(2)
-    mult = _SIZE_MULT[suffix[0].upper() if suffix else None]
-    return int(float(m.group(1)) * mult)
+from m3_tpu_torch.x.membudget import parse_bytes
 
 __all__ = [
     "LEVELS", "check_ingest", "components", "configure", "counters",

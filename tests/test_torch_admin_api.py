@@ -403,7 +403,15 @@ def test_runtime_type_validation(tmp_path):
 
 def test_health_faults_and_missing_subsystems(tmp_path):
     """The admin port's liveness, the fault registry, and the routes whose
-    subsystem this process lacks (404 with the reference's bodies)."""
+    subsystem this process lacks (404 with the reference's bodies).  Each
+    package's fault counters start at zero: they are process-global, and
+    other tests in the process leave theirs."""
+    from m3_tpu.x import fault as jfault
+    from m3_tpu_torch.x import fault as tfault
+
+    jfault.reset_counters()
+    tfault.reset_counters()
+
     def run(P, root):
         def body(base, db, kv):
             out = [_req(base, "GET", "/health")]

@@ -127,11 +127,6 @@ UNPORTED = [
     ("coordinator: {carbon_listen_port: 0}", "m3_tpu/metrics/carbon.py"),
     ("query: {listen_port: 0}", "m3_tpu/query/remote.py"),
     ("query: {remotes: ['127.0.0.1:9']}", "m3_tpu/query/fanout.py"),
-    ("selfmon: {enabled: true}", "m3_tpu/instrument/selfmon.py"),
-    ("selfmon: {enabled: true}\ncontroller: {enabled: true}",
-     "m3_tpu/x/controller.py"),
-    ("device: {mem_budget: 1G}", "m3_tpu/x/membudget.py"),
-    ("device: {breaker_failures: 2}", "m3_tpu/x/devguard.py"),
     ("coordinator: {arena_ingest: pallas}", "has no counterpart"),
 ]
 
@@ -168,6 +163,39 @@ def test_cluster_sections_are_accepted(tmp_path, text, part):
         assert (asm.admin_port is not None) == (part == "admin_server")
     finally:
         asm.close()
+
+
+# the device-boundary and control-plane sections, refused until
+# devguard, membudget, selfmon and the controller were ported, and what
+# each one sets on the node it builds
+DEVICE_AND_CONTROL_SECTIONS = [
+    ("selfmon: {enabled: true}", "selfmon"),
+    ("selfmon: {enabled: true}\ncontroller: {enabled: true}", "controller"),
+    ("device: {mem_budget: 1G}", "mem_budget"),
+    ("device: {breaker_failures: 2}", "breaker_failures"),
+]
+
+
+@pytest.mark.parametrize("text,part", DEVICE_AND_CONTROL_SECTIONS)
+def test_device_and_control_sections_are_accepted(tmp_path, text, part):
+    from m3_tpu_torch.x import devguard, membudget
+
+    cfg = tc.load_config(f"{text}\nmediator: {{enabled: false}}\n")
+    cfg.db.root = str(tmp_path)
+    tasm.refuse_unported(cfg)
+    asm = tasm.run_node(cfg, device="cpu")
+    try:
+        if part in ("selfmon", "controller"):
+            assert getattr(asm, part) is not None
+            assert "_m3_selfmon" in asm.db.namespaces
+        elif part == "mem_budget":
+            assert membudget.budget() == 1 << 30
+        else:
+            assert devguard._FAILURES == 2
+    finally:
+        asm.close()
+        membudget.set_budget(0)
+        devguard.configure(failures=5, reset_s=10.0)
 
 
 def test_arena_ingest_auto_is_accepted():

@@ -1158,3 +1158,98 @@ def test_three_node_cluster_on_card_equals_cpu(tmp_path):
     cpu = _cluster_on([torch.device("cpu")] * 3, tmp_path / "cpu", S, K, down_after=4)
     assert card == cpu
     assert card[2]["series_diff"] == S and card[2]["repaired_replicas"] == 64
+
+
+@pytest.mark.gpu
+def test_card_oom_through_a_guarded_stage():
+    """A buffer ring larger than the card: one allocation that cannot
+    land raises DeviceOOM caused by torch's OutOfMemoryError, counted on
+    storage.buffer_append, with nothing left allocated or reserved."""
+    from m3_tpu_torch.storage.buffer import ShardBuffer
+    from m3_tpu_torch.x import breaker, devguard, membudget
+
+    dev = _cuda_or_skip()
+    _free, total = torch.cuda.mem_get_info(dev)
+    breaker.reset_registry()
+    devguard.reset_stages()
+    before, used = torch.cuda.memory_allocated(dev), membudget.used()
+    try:
+        with pytest.raises(devguard.DeviceOOM) as e:
+            ShardBuffer(3600 * SEC, 2, total // 8 + 1, 1 << 17, device=dev)
+        assert isinstance(e.value.__cause__, torch.cuda.OutOfMemoryError)
+        assert torch.cuda.memory_allocated(dev) == before and membudget.used() == used
+        assert devguard.counters() == {"device.storage.buffer_append.errors.oom": 1}
+    finally:
+        breaker.reset_registry()
+        devguard.reset_stages()
+
+
+_FOOTPRINTS = """
+import json, torch
+from m3_tpu_torch.aggregator import arena, packed
+from m3_tpu_torch.storage.buffer import ShardBuffer
+from m3_tpu_torch.x import membudget as mb
+dev = torch.device("cuda")
+W, C, S = 2, 1_000_000, 1 << 20
+builds = {
+    "packed counter": (lambda: packed.PackedCounterArena(W, C, device=dev),
+                       mb.counter_arena_bytes("packed", W, C)),
+    "packed timer": (lambda: packed.PackedTimerArena(W, C, S, device=dev),
+                     mb.timer_arena_bytes("packed", W, C, S)),
+    "f64 gauge": (lambda: arena.GaugeArena(W, C, device=dev),
+                  mb.gauge_arena_bytes("f64", W, C)),
+    "f64 timer": (lambda: arena.TimerArena(W, C, S, device=dev),
+                  mb.timer_arena_bytes("f64", W, C, S)),
+    "buffer": (lambda: ShardBuffer(7200 * 10**9, 2, 1 << 21, 1 << 17, device=dev),
+               mb.buffer_bytes(2, 1 << 21)),
+}
+out = {}
+for name, (build, need) in builds.items():
+    before = torch.cuda.memory_allocated()
+    obj = build()
+    torch.cuda.synchronize()
+    out[name] = (torch.cuda.memory_allocated() - before, need, obj._mem.nbytes)
+    del obj
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.gpu
+def test_resident_footprints_equal_the_allocators_bytes():
+    """In a process whose caching allocator splits every block to its
+    request (expandable segments), building each structure grows
+    memory_allocated() by its reservation, to the byte."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    _cuda_or_skip()
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _FOOTPRINTS], env=env, cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name, (delta, need, reserved) in got.items():
+        assert delta == need == reserved, (name, delta, need, reserved)
+
+
+@pytest.mark.gpu
+def test_codec_stages_count_on_card():
+    """encode and decode on the card run as guarded stages: each call
+    counted once, the transient lane reservations released after."""
+    from m3_tpu_torch.x import devguard, membudget
+
+    dev = _cuda_or_skip()
+    devguard.reset_stages()
+    ts, vals, starts = _mixed_batch(5, 64, 50)
+    used = membudget.used()
+    try:
+        streams, fb = mt.encode_batch(ts, vals, starts, device=dev)
+        mt.decode_batch(streams, 50, device=dev)
+        got = devguard.counters()
+        assert got["device.encode.calls"] == 1 and got["device.decode.calls"] == 1
+        assert membudget.used() - used in (0, 1 << 20)  # the control table, once
+    finally:
+        devguard.reset_stages()

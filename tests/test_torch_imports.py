@@ -39,7 +39,11 @@ def test_every_module_imports_with_jax_blocked():
               "server.rpc", "client", "client.session", "cluster.kv_remote",
               "cluster.topology", "cluster.namespace_registry",
               "core.runtime_options", "storage.repair", "storage.migration",
-              "server.admin_api"):
+              "server.admin_api",
+              # the device boundary and the control plane
+              "x.devguard", "x.membudget", "instrument.exposition",
+              "query.slo", "instrument.selfmon", "instrument.debug",
+              "x.controller", "x.chaos", "ctl", "ctl.r2"):
         assert f"m3_tpu_torch.{m}" in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

@@ -22,6 +22,7 @@ writes ``node.json``, answers ``/health`` and exits 0 on SIGTERM.
 """
 
 import hashlib
+import io
 import json
 import math
 import os
@@ -32,6 +33,7 @@ import sys
 import time
 import urllib.error
 import urllib.request
+import zipfile
 
 import numpy as np
 import pytest
@@ -255,14 +257,22 @@ def test_requests_flush_files_and_restart_match(nodes):
         _call(port, "/api/v1/debug/faults", b'{"disarm": ["node.test"]}', "POST")
 
     # the routes whose module is not ported answer 501 in the port
-    for path in ("/render?target=x", "/metrics/find?query=x", "/debug/dump"):
+    for path in ("/render?target=x", "/metrics/find?query=x"):
         st, _, body = _call(ta.port, path)
         assert st == 501 and b"is not ported" in body
+    # the debug bundle: a zip of the reference's members
+    members = []
+    for port in (ta.port, ja.port):
+        st, _, body = _call(port, "/debug/dump?seconds=0.05")
+        assert st == 200
+        members.append(zipfile.ZipFile(io.BytesIO(body)).namelist())
+    assert members[0] == members[1] == ["threads.txt", "cpu.txt", "heap.txt",
+                                        "host.json"]
 
     st_t, _, ht = _call(ta.port, "/health")
     st_j, _, hj = _call(ja.port, "/health")
     assert st_t == st_j == 200
-    assert json.loads(ht)["ok"] and "absent" in json.loads(ht)
+    assert json.loads(ht)["ok"] and set(json.loads(ht)) == set(json.loads(hj))
 
     # the mediator on one clock, past the block end + bufferPast
     now = START + BLOCK + 11 * 60 * SEC
