@@ -336,9 +336,41 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    answer PromQL; (e) ``/debug/dump`` is a zip of the reference's
    members.  Each part's wall, the footprints, the transient ratios.
 
-Order.  Phases 16, 18-19 and 22 run in lanes: spawned processes of their
-own, started with the script (phase 18's request builders start in its
-lane then), released after phase 11 and joined after phase 17.  The main
+23. query federation and the Graphite front door: (a) after phase 22 in
+   its lane, a node on the card (``run_node`` with
+   ``coordinator.carbon_listen_port``) takes config #2's width as carbon
+   plaintext over TCP: 100,000 paths ``m3.dc{0..3}.host{0..249}.{metric}``
+   (100 metric names), 12 scrapes at 10 s from a block boundary (cut
+   from 720), one connection a scrape; ``/render`` of six targets
+   (``sumSeries`` over 250 series, ``groupByNode`` over 1,000,
+   ``aliasByNode(highestAverage(...))``, ``movingAverage``, ``summarize``,
+   ``asPercent``), graphite-web's ``"sumSeries"`` callback spelling (400,
+   as the reference answers) and ``/metrics/find``, each against a numpy
+   oracle of the sent lines (rtol 1e-12) and byte-equal to a node on the
+   CPU fed the lines of the 1,612 paths they read; every path read back
+   through ``/render`` of its host's glob under its own name, bit for
+   bit; ``run_once`` past the block's end plus bufferPast (warm flush,
+   kernel #1 held against its plain version on every launch), every
+   volume decoded on the card (kernel #2, held likewise) equal to the
+   lines sent, and the renders again from the filesets (equal to before,
+   and to the CPU's); (b) in a lane of its own, config #5's 100,000
+   counters, 21 scrapes at 15 s,
+   through ``write_tagged_batch`` into two nodes on the card: A (groups
+   0-6,249, ``query.listen_port``) and B (the rest, ``query.remotes:
+   [A]``); B's ``rate(...[5m])`` and ``histogram_quantile(0.99, sum by
+   (le, group) (rate(...[5m])))`` over the last minute equal to one node
+   holding all 100,000 series (rtol 1e-12), and on 128 groups of each
+   half equal to the same pair on the CPU; then A's query server
+   stopped: B answers its half with a ``warnings`` entry, a front door
+   over B with ``remotes_required`` answers 502, and after
+   ``breaker_failures`` (3) failures the peer's breaker opens and the
+   next query fails fast.  Carbon lines/s, the flush, each render's wall
+   and its ``GraphiteStorage.fetch`` share, each query's wall and its
+   remote fetch's share.
+
+Order.  Phases 16, 18-19 and 22-23 run in lanes: spawned processes of
+their own, started with the script (phase 18's request builders start in
+its lane then), released after phase 11 and joined after phase 17.  The main
 process meanwhile runs phases 12-15, 20 and 17, in that order; phase 21
 runs last, alone on the card.  Each lane's wall, the main process's wait
 for it and its peak host memory are printed, and each kernel record's
@@ -359,8 +391,10 @@ main paths: kernels #3 and #4 in (a)'s f64 step, #1 in (c)'s encode,
 21's (a)-(c): kernel #1 once per shard of A's and B's warm flushes) and
 ``cluster_check_launches`` (its volume check (d): kernel #2), and
 ``device_launches`` (phase 22's main path: #3 and #4 in the f64 ingest,
-#1 in (c)'s flush, #2 in (c)'s volume check); ``shared_card`` names the
-phases whose kernel times were taken while phase 22 ran beside them.
+#1 in (c)'s flush, #2 in (c)'s volume check), and ``graphite_launches``
+(phase 23's path: #1 in (a)'s flush, #2 in its volume check);
+``shared_card`` names the phases whose kernel times were taken while a
+lane ran beside them.
 The last three lines are a JSON line of kernel records, the card's name
 and power limit, and the result line ``{"ok": true, "device": {...}}``.
 Exact comparisons throughout, except where a phase names its tolerance.
@@ -6075,13 +6109,15 @@ def control_plane_on_a_node(seed: int, dev) -> dict:
 
 
 def device_control_lane(seed: int) -> dict:
-    """Phase 22 in a lane of its own (its caching allocator in expandable
-    segments, which split every block to its request): (a) OOM, (b)
-    budgets and footprints, then the phase's main path with every launch
-    counted — the f64 ingest stage at full width, (c) breakers on a node,
-    (d)-(e) the control plane — and the wall of each part.  Returns the
-    parts' results, the launches and each kernel's largest difference
-    from its plain version."""
+    """Phase 22 and phase 23 (a) in a lane of their own (its caching
+    allocator in expandable segments, which split every block to its
+    request): (a) OOM, (b) budgets and footprints, then phase 22's main
+    path with every launch counted — the f64 ingest stage at full width,
+    (c) breakers on a node, (d)-(e) the control plane — and the wall of
+    each part; then phase 23 (a) (``graphite_front_door``).  Returns
+    phase 22's parts' results, launches and each kernel's largest
+    difference from its plain version, and phase 23 (a)'s under
+    ``front_door``."""
     import torch
 
     torch.set_num_threads(1)
@@ -6102,7 +6138,11 @@ def device_control_lane(seed: int) -> dict:
     out["main_path_s"] = time.perf_counter() - t0
     err = dict(out["ingest"].pop("max_abs_err"))
     err.update(out["c"].pop("max_abs_err"))
-    return {"parts": out, "launches": launches, "max_abs_err": err}
+    torch.cuda.empty_cache()
+    front_door = front_door_part(graphite_front_door, seed, dev)
+    log(f"phase23 (a) done in {front_door['part']['wall_s']:.1f} s")
+    return {"parts": out, "launches": launches, "max_abs_err": err,
+            "front_door": front_door}
 
 
 def device_control_records(kernels: list, got: dict, card: str) -> None:
@@ -6159,6 +6199,513 @@ def node_tier_lane(seed: int, card: str) -> dict:
         if k["name"] == "place_words":  # and in the HOPS pipeline, every launch
             k["max_abs_err"] = max(k["max_abs_err"], tier_t["hops_place_max_abs_err"])
     return {"records": recs}
+
+
+# ---- phase 23: query federation and the Graphite front door ---------------
+
+GRAPHITE_DCS, GRAPHITE_HOSTS = 4, 250
+GRAPHITE_METRICS = ("cpu_user", "cpu_total", "mem_used", "disk_io", "net_rx") + tuple(
+    f"metric_{j:02d}" for j in range(95))  # 100 names: 100,000 paths, config #2's width
+GRAPHITE_SCRAPES = 12  # of the block's 720 at 10 s (PERF.md §4)
+GRAPHITE_READBACK_BATCH = 10  # host globs (100 paths each) a /render request
+GRAPHITE_TARGETS = (
+    "sumSeries(m3.dc0.*.cpu_user)",
+    'groupByNode(m3.*.*.cpu_user, 1, "sum")',
+    "aliasByNode(highestAverage(m3.dc1.*.mem_used, 10), 2)",
+    "movingAverage(m3.dc2.host1*.disk_io, 3)",
+    'summarize(m3.dc3.*.net_rx, "1min", "sum")',
+    "asPercent(m3.dc0.host0.cpu_user, m3.dc0.host0.cpu_total)",
+)
+# graphite-web's spelling of groupByNode's callback: the reference takes
+# the short names ("sum", "avg", "max", "min") and answers it 400
+GRAPHITE_REFUSED = 'groupByNode(m3.*.*.cpu_user, 1, "sumSeries")'
+GRAPHITE_FIND = "m3.dc0.*"
+FED_QUERIES = ("rate(m3_req_bucket[5m])",
+               "histogram_quantile(0.99, sum by (le, group) (rate(m3_req_bucket[5m])))")
+FED_CHECK_GROUPS = 128  # groups of each node's half, card against CPU
+FED_BREAKER_FAILURES = 3
+
+
+class GraphiteTraffic:
+    """Phase 23 (a)'s seeded carbon traffic: ``m3.dc{0..3}.host{0..249}.
+    {metric}`` for 100 metric names, K scrapes at 10 s from a block
+    boundary, values with two decimals."""
+
+    def __init__(self, seed: int):
+        self.hosts, self.K = GRAPHITE_HOSTS, GRAPHITE_SCRAPES
+        self.paths = [f"m3.dc{d}.host{h}.{m}" for d in range(GRAPHITE_DCS)
+                      for h in range(self.hosts) for m in GRAPHITE_METRICS]
+        self.row = {p: i for i, p in enumerate(self.paths)}
+        rng = np.random.default_rng(seed + 23)
+        # + 0.0: a -0.0 line would come back +0.0 (M3TSZ's integer path)
+        self.vals = np.round(rng.normal(50.0, 20.0, (len(self.paths), self.K)), 2) + 0.0
+        self.ts = STORE_START + np.arange(self.K, dtype=np.int64) * 10 * SEC
+
+    def lines(self, k: int, rows=None) -> bytes:
+        """Scrape k as carbon plaintext (``path value seconds``)."""
+        rows = range(len(self.paths)) if rows is None else rows
+        t, col = int(self.ts[k] // SEC), self.vals[:, k].tolist()
+        return "".join(f"{self.paths[i]} {col[i]!r} {t}\n" for i in rows).encode()
+
+    def select(self, dc=None, host_prefix="", metric=None) -> list:
+        """Paths matching each given component, sorted as the index
+        returns them."""
+        out = []
+        for p in self.paths:
+            _, d, h, m = p.split(".")
+            if (dc is None or d == dc) and h.startswith(host_prefix) and (
+                    metric is None or m == metric):
+                out.append(p)
+        return sorted(out)
+
+    def window(self) -> str:
+        t0 = int(STORE_START // SEC)
+        return f"&from={t0}&until={t0 + self.K * 10}&step=10s"
+
+
+def graphite_oracle(traffic: GraphiteTraffic) -> dict:
+    """Each of GRAPHITE_TARGETS from the sent values with numpy: [(name,
+    step seconds, values)], and the find's entries."""
+    V = traffic.vals
+    rows = lambda ps: V[[traffic.row[p] for p in ps]]  # noqa: E731
+    out = {}
+    ps = traffic.select(dc="dc0", metric="cpu_user")
+    out[GRAPHITE_TARGETS[0]] = [(f"sumSeries({','.join(ps[:3])})", 10, rows(ps).sum(0))]
+    out[GRAPHITE_TARGETS[1]] = [
+        (f"dc{d}", 10, rows(traffic.select(dc=f"dc{d}", metric="cpu_user")).sum(0))
+        for d in range(GRAPHITE_DCS)]
+    ps = traffic.select(dc="dc1", metric="mem_used")
+    mean = [float(V[traffic.row[p]].mean()) for p in ps]
+    top = sorted(range(len(ps)), key=lambda i: -mean[i])[:10]
+    out[GRAPHITE_TARGETS[2]] = [(ps[i].split(".")[2], 10, V[traffic.row[ps[i]]]) for i in top]
+    out[GRAPHITE_TARGETS[3]] = []
+    for p in traffic.select(dc="dc2", host_prefix="host1", metric="disk_io"):
+        v = V[traffic.row[p]]
+        out[GRAPHITE_TARGETS[3]].append((f"movingAverage({p},3)", 10, np.array(
+            [v[max(0, i - 2):i + 1].mean() for i in range(len(v))])))
+    out[GRAPHITE_TARGETS[4]] = []
+    for p in traffic.select(dc="dc3", metric="net_rx"):
+        v = V[traffic.row[p]]
+        out[GRAPHITE_TARGETS[4]].append((f'summarize({p},"1min","sum")', 60, np.array(
+            [v[b * 6:(b + 1) * 6].sum() for b in range(-(-len(v) // 6))])))
+    a, b = (V[traffic.row[f"m3.dc0.host0.{m}"]] for m in ("cpu_user", "cpu_total"))
+    out[GRAPHITE_TARGETS[5]] = [
+        ("asPercent(m3.dc0.host0.cpu_user,m3.dc0.host0.cpu_total)", 10, 100.0 * a / b)]
+    out["find"] = [{"text": h, "id": f"m3.dc0.{h}", "leaf": 0, "expandable": 1}
+                   for h in sorted(f"host{i}" for i in range(traffic.hosts))]
+    return out
+
+
+def graphite_rows(traffic: GraphiteTraffic) -> list:
+    """The rows the targets and the find read: what phase 23's CPU node
+    takes."""
+    ps = set(traffic.select(metric="cpu_user"))
+    ps |= set(traffic.select(dc="dc1", metric="mem_used"))
+    ps |= set(traffic.select(dc="dc2", host_prefix="host1", metric="disk_io"))
+    ps |= set(traffic.select(dc="dc3", metric="net_rx"))
+    ps.add("m3.dc0.host0.cpu_total")
+    return sorted(traffic.row[p] for p in ps)
+
+
+def graphite_same(doc: list, want: list, start_s: int) -> float:
+    """A /render answer against the oracle's series: the same names and
+    times, values within rtol 1e-12 (none missing).  Returns the largest
+    relative difference."""
+    assert [s["target"] for s in doc] == [w[0] for w in want], \
+        ([s["target"] for s in doc][:3], [w[0] for w in want][:3])
+    worst = 0.0
+    for s, (name, step_s, vals) in zip(doc, want):
+        assert [t for _, t in s["datapoints"]] == [start_s + i * step_s
+                                                  for i in range(len(vals))], name
+        got = np.array([np.nan if v is None else v for v, _ in s["datapoints"]])
+        assert not np.isnan(got).any(), name
+        assert np.allclose(got, vals, rtol=1e-12, atol=0), (name, got[:3], vals[:3])
+        worst = max(worst, rel_err(got, np.asarray(vals, np.float64)))
+    return worst
+
+
+class CarbonNode:
+    """A port node with ``coordinator.carbon_listen_port`` (and, for (b),
+    the query listener or remotes), its carbon sender and HTTP client."""
+
+    def __init__(self, name: str, dev, query: dict | None = None,
+                 root: Path | None = None):
+        from m3_tpu_torch.server import assembly
+
+        self.root = root or store_root(name)
+        cfg = {"db": {"root": str(self.root)},
+               "coordinator": {"listen_port": 0, "carbon_listen_port": 0},
+               "mediator": {"tick_interval": "24h"}}
+        if query:
+            cfg["query"] = query
+        self.asm = assembly.run_node(json.dumps(cfg) + "\n", device=dev)
+        self.http = NodeClient(self.asm.port)
+
+    def send(self, payload: bytes) -> None:
+        import socket
+
+        with socket.create_connection(("127.0.0.1", self.asm.carbon_port)) as s:
+            s.sendall(payload)
+
+    def samples(self) -> int:
+        return int(self.asm.registry.snapshot().get(
+            f"{self.asm.config.metrics_prefix}.carbon.samples", 0))
+
+    def render(self, targets, window: str):
+        from urllib.parse import quote
+
+        path = "/render?" + "&".join(f"target={quote(t)}" for t in targets) + window
+        return self.http.call(path)
+
+    def close(self) -> None:
+        self.asm.close()
+
+
+def carbon_ingest(node: CarbonNode, traffic: GraphiteTraffic, rows=None) -> dict:
+    """Every scrape sent over one TCP connection each, then waited for
+    until the listener has handed every line to the node; returns the
+    seconds of the first scrape (100,000 new series) and of the rest."""
+    n = len(traffic.paths) if rows is None else len(rows)
+    base = node.samples()
+    out = {}
+    t0 = time.perf_counter()
+    for k in range(traffic.K):
+        node.send(traffic.lines(k, rows))
+        if k == 0:
+            wait_for(lambda: node.samples() >= base + n, "carbon scrape 0", 600)
+            out["first_scrape_s"] = time.perf_counter() - t0
+    wait_for(lambda: node.samples() >= base + n * traffic.K, "carbon scrapes", 1200)
+    out["all_s"] = time.perf_counter() - t0
+    assert node.samples() == base + n * traffic.K
+    assert node_counter(node.asm, "carbon_malformed") == 0
+    out["lines_per_s"] = n * traffic.K / out["all_s"]
+    return out
+
+
+def graphite_renders(node: CarbonNode, traffic: GraphiteTraffic, want: dict) -> tuple:
+    """GRAPHITE_TARGETS, the refused spelling and the find through the
+    node's HTTP front door, each held against the oracle; returns (the
+    bodies, each render's wall and the share of it in
+    ``GraphiteStorage.fetch``)."""
+    from m3_tpu_torch.query import graphite
+
+    start_s = int(STORE_START // SEC)
+    bodies, times = [], {}
+    for t in GRAPHITE_TARGETS:
+        clock = HostClock()
+        clock.wrap(graphite.GraphiteStorage, "fetch", "fetch")
+        try:
+            t0 = time.perf_counter()
+            st, _, body = node.render([t], traffic.window())
+            wall = time.perf_counter() - t0
+        finally:
+            clock.restore()
+        assert st == 200, (t, st, body[:300])
+        worst = graphite_same(json.loads(body), want[t], start_s)
+        times[t] = {"wall_ms": wall * 1e3, "fetch_share": clock.s["fetch"] / wall,
+                    "series_out": len(want[t]), "max_rel_err": worst}
+        bodies.append(body)
+    st, _, body = node.render([GRAPHITE_REFUSED], traffic.window())
+    assert st == 400 and b"sumSeries" in body, (st, body)
+    bodies.append(body)
+    st, _, body = node.http.call(f"/metrics/find?query={GRAPHITE_FIND}")
+    assert st == 200 and json.loads(body) == want["find"], body[:300]
+    bodies.append(body)
+    return bodies, times
+
+
+def graphite_readback(node: CarbonNode, traffic: GraphiteTraffic) -> dict:
+    """Every path sent read back through /render (the glob of its host,
+    GRAPHITE_READBACK_BATCH globs a request), under its own name and
+    equal to the values sent, bit for bit."""
+    globs = [f"m3.dc{d}.host{h}.*" for d in range(GRAPHITE_DCS) for h in range(traffic.hosts)]
+    start_s = int(STORE_START // SEC)
+    times = [start_s + 10 * k for k in range(traffic.K)]
+    seen = np.zeros(len(traffic.paths), bool)
+    t0 = time.perf_counter()
+    for lo in range(0, len(globs), GRAPHITE_READBACK_BATCH):
+        st, _, body = node.render(globs[lo:lo + GRAPHITE_READBACK_BATCH], traffic.window())
+        assert st == 200, (st, body[:300])
+        for s in json.loads(body):
+            i = traffic.row[s["target"]]
+            assert not seen[i], s["target"]
+            seen[i] = True
+            assert [t for _, t in s["datapoints"]] == times, s["target"]
+            got = np.array([v for v, _ in s["datapoints"]], np.float64)
+            assert np.array_equal(got.view(np.int64), traffic.vals[i].view(np.int64)), \
+                s["target"]
+    assert seen.all(), int((~seen).sum())
+    wall = time.perf_counter() - t0
+    return {"paths": int(seen.sum()), "requests": -(-len(globs) // GRAPHITE_READBACK_BATCH),
+            "wall_s": wall, "paths_per_s": int(seen.sum()) / wall}
+
+
+def graphite_volumes(node: CarbonNode, traffic: GraphiteTraffic, dev) -> dict:
+    """Every volume of the node decoded on the card (``decode_batch``,
+    kernel #2) equal to the scrapes sent, bit for bit, each path once."""
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.persist.fs import DataFileSetReader
+
+    ids, segs = [], []
+    for sh, bs, v in fileset_volumes(node.root):
+        r = DataFileSetReader(node.root, "default", sh, bs, v)
+        for sid, seg in r.read_all():
+            ids.append(sid)
+            segs.append(seg)
+        r.close()
+    rows = np.asarray([traffic.row[sid.decode()] for sid in ids])
+    assert np.array_equal(np.sort(rows), np.arange(len(traffic.paths))), "volumes miss paths"
+    d_ts, d_vals, counts, dfb = mt.decode_batch(segs, traffic.K, device=dev)
+    assert not dfb.any() and (counts == traffic.K).all()
+    assert (d_ts == traffic.ts[None, :]).all()
+    assert np.array_equal(d_vals.view(np.int64), traffic.vals[rows].view(np.int64))
+    return {"series": len(ids), "points": int(counts.sum())}
+
+
+def graphite_front_door(seed: int, dev) -> dict:
+    """Phase 23 (a): see the module docstring."""
+    import torch
+
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.parallel import decode_gather, encode_place
+
+    traffic = GraphiteTraffic(seed)
+    want = graphite_oracle(traffic)
+    out: dict = {"paths": len(traffic.paths), "scrapes": traffic.K}
+    check_rows = graphite_rows(traffic)
+    node = CarbonNode("phase23-a", dev)
+    cpu = CarbonNode("phase23-a-cpu", "cpu")
+    try:
+        out["ingest"] = carbon_ingest(node, traffic)
+        log(f"phase23 (a) carbon: {len(traffic.paths) * traffic.K:,} lines in "
+            f"{out['ingest']['all_s']:.1f} s ({out['ingest']['lines_per_s']:,.0f} lines/s; "
+            f"first scrape {out['ingest']['first_scrape_s']:.1f} s)")
+        carbon_ingest(cpu, traffic, check_rows)
+        before, out["renders_buffer"] = graphite_renders(node, traffic, want)
+        cpu_before, _ = graphite_renders(cpu, traffic, want)
+        assert before == cpu_before, "card renders != CPU renders (buffers)"
+        out["readback"] = graphite_readback(node, traffic)
+        now = STORE_START + BLOCK + 10 * 60 * SEC + SEC
+        t0 = time.perf_counter()
+        with KernelCheck(mt, "place_words", encode_place.place_words_plain) as pcheck:
+            st = node.asm.mediator.run_once(now)
+        torch.cuda.synchronize()
+        out["flush_s"] = time.perf_counter() - t0
+        assert st["tick"]["default"]["warm_flushed"] > 0, st
+        cpu.asm.mediator.run_once(now)
+        with KernelCheck(mt, "extract_fields64_t",
+                         decode_gather.extract_fields64_t_plain) as dcheck:
+            out["volumes"] = graphite_volumes(node, traffic, dev)
+        after, out["renders_fileset"] = graphite_renders(node, traffic, want)
+        cpu_after, _ = graphite_renders(cpu, traffic, want)
+        assert after == cpu_after, "card renders != CPU renders (filesets)"
+        assert after == before, "renders changed across the flush"
+        out.update(place_calls=pcheck.calls, extract_calls=dcheck.calls,
+                   cpu_paths=len(check_rows),
+                   max_abs_err={"place_words": pcheck.err,
+                                "extract_fields64_t": dcheck.err})
+        assert pcheck.calls > 0 and dcheck.calls > 0
+    finally:
+        node.close()
+        cpu.close()
+    return out
+
+
+def fed_docs(rows, ubs):
+    """Config #5's documents for the given rows (group i // B, le i % B)."""
+    from m3_tpu_torch.index.doc import Document
+
+    B = len(ubs)
+    return [Document.from_tags(b"m3_req_bucket{group=g%06d,le=%s}" % (i // B, ubs[i % B]),
+                               {b"__name__": b"m3_req_bucket", b"group": b"g%06d" % (i // B),
+                                b"le": ubs[i % B]}) for i in rows]
+
+
+def fed_write(asm, rows, ts, vals, ubs) -> float:
+    """NODE_SCRAPES scrapes of ``rows`` through ``write_tagged_batch``;
+    returns the seconds."""
+    docs = fed_docs(rows, ubs)
+    t0 = time.perf_counter()
+    for k in range(NODE_SCRAPES):
+        asm.db.write_tagged_batch("default", docs, ts[rows, k], vals[rows, k])
+    return time.perf_counter() - t0
+
+
+def fed_answer(doc) -> dict:
+    """A query_range answer: {(group, le): {step seconds: value}}."""
+    assert doc["status"] == "success" and doc["data"]["resultType"] == "matrix", doc
+    return {(r["metric"].get("group"), r["metric"].get("le")):
+            {float(t): float(v) for t, v in r["values"]} for r in doc["data"]["result"]}
+
+
+def fed_same(a: dict, b: dict, rtol: float = 1e-12) -> float:
+    """Two answers over the same series and steps, NaN in the same places,
+    values within rtol; returns the largest relative difference."""
+    assert a.keys() == b.keys() and a, (len(a), len(b))
+    worst = 0.0
+    for key, row in a.items():
+        assert row.keys() == b[key].keys(), key
+        x = np.array(list(row.values()))
+        y = np.array([b[key][t] for t in row])
+        assert np.array_equal(np.isnan(x), np.isnan(y)), key
+        worst = max(worst, rel_err(x, y))
+    assert worst <= rtol, worst
+    return worst
+
+
+def federation(seed: int, dev) -> dict:
+    """Phase 23 (b): see the module docstring."""
+    from m3_tpu_torch.server import http_api
+
+    ts, vals, ubs = promql_corpus(seed, PROMQL_GROUPS, PROMQL_BUCKETS)
+    S, B = ts.shape[0], len(ubs)
+    half = S // 2
+    q_end = int(ts[0, NODE_SCRAPES - 1])
+    paths = [node_query_path(q, q_end - 60 * SEC, q_end) for q in FED_QUERIES]
+    out: dict = {"series": S}
+    made = []
+
+    def node(name, d, query=None, root=None):
+        made.append(CarbonNode(name, d, query, root))
+        return made[-1]
+
+    try:
+        a = node("phase23-b-a", dev, {"listen_port": 0})
+        a_port = a.asm.query_port
+        b = node("phase23-b-b", dev, {
+            "remotes": [f"127.0.0.1:{a_port}"],
+            "breaker_failures": FED_BREAKER_FAILURES, "breaker_reset": "300s"})
+        one = node("phase23-b-one", dev)
+        out["write_s"] = {"a": fed_write(a.asm, np.arange(half), ts, vals, ubs),
+                          "b": fed_write(b.asm, np.arange(half, S), ts, vals, ubs),
+                          "one": fed_write(one.asm, np.arange(S), ts, vals, ubs)}
+        clock = HostClock()
+        clock.wrap(b.asm.remote_stores[0], "fetch_raw", "remote_fetch")
+        answers, out["queries"] = [], {}
+        try:
+            for q, path in zip(FED_QUERIES, paths):
+                clock.s.clear()
+                t0 = time.perf_counter()
+                got = fed_answer(b.http.json(path))
+                wall = time.perf_counter() - t0
+                ref = fed_answer(one.http.json(path))
+                out["queries"][q] = {"wall_ms": wall * 1e3,
+                                     "remote_fetch_share": clock.s["remote_fetch"] / wall,
+                                     "series_out": len(got),
+                                     "max_rel_err_vs_one_node": fed_same(got, ref)}
+                answers.append(got)
+        finally:
+            clock.restore()
+        log(f"phase23 (b) federated answers == one node of {S:,} series: "
+            + json.dumps(out["queries"]))
+
+        # the same run on the CPU, on FED_CHECK_GROUPS groups of each half
+        g = np.arange(FED_CHECK_GROUPS)
+        rows_a = (g[:, None] * B + np.arange(B)).ravel()
+        rows_b = rows_a + half
+        ca = node("phase23-b-cpu-a", "cpu", {"listen_port": 0})
+        cb = node("phase23-b-cpu-b", "cpu", {"remotes": [f"127.0.0.1:{ca.asm.query_port}"]})
+        fed_write(ca.asm, rows_a, ts, vals, ubs)
+        fed_write(cb.asm, rows_b, ts, vals, ubs)
+        out["card_vs_cpu"] = {}
+        for q, path, got in zip(FED_QUERIES, paths, answers):
+            cpu_got = fed_answer(cb.http.json(path))
+            card = {k: got[k] for k in cpu_got}
+            out["card_vs_cpu"][q] = {
+                "series": len(cpu_got), "max_rel_err": fed_same(card, cpu_got),
+                "bit_equal": all(np.array_equal(np.array(list(card[k].values())).view(
+                    np.int64), np.array(list(v.values())).view(np.int64))
+                    for k, v in cpu_got.items())}
+
+        # A's query server stops; B's connections to it drop
+        stop(a.asm.query_server)
+        a.asm.query_server = None
+        b.asm.remote_stores[0]._pool.close()
+        hq = paths[1]
+        doc = b.http.json(hq)
+        assert doc.get("warnings") and "skipped" in doc["warnings"][0], doc.get("warnings")
+        own = fed_answer(doc)
+        ref = {k: v for k, v in answers[1].items() if int(k[0][1:]) >= PROMQL_GROUPS // 2}
+        out["best_effort"] = {"groups": len(own), "max_rel_err": fed_same(own, ref),
+                              "warning": doc["warnings"][0]}
+        ctx = http_api.ApiContext(b.asm.db, remotes=b.asm.remote_stores,
+                                  remotes_required=True)
+        srv = http_api.serve_background(ctx)
+        # one of B's groups: the local half of each failing query is cheap
+        one_group = node_query_path(
+            f'rate(m3_req_bucket{{group="g{PROMQL_GROUPS - 1:06d}"}}[5m])',
+            q_end - 60 * SEC, q_end)
+        try:
+            req = NodeClient(srv.server_address[1])
+            br = b.asm.remote_stores[0].breaker
+            walls = []
+            while True:
+                t0 = time.perf_counter()
+                st, _, body = req.call(one_group)
+                walls.append((time.perf_counter() - t0) * 1e3)
+                assert st == 502, (st, body[:300])
+                if br.state == "open" or len(walls) > FED_BREAKER_FAILURES + 1:
+                    break
+            assert br.state == "open" and len(walls) == FED_BREAKER_FAILURES - 1, \
+                (br.state, len(walls))  # the best-effort query counted one failure
+            t0 = time.perf_counter()
+            st, _, body = req.call(one_group)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            assert st == 502 and b"circuit breaker open" in body, (st, body[:300])
+        finally:
+            stop(srv)
+        breakers = b.http.json("/health")["query"]["breakers"]
+        assert breakers[f"query:127.0.0.1:{a_port}"] == "open", breakers
+        out["required"] = {"status": 502, "walls_ms": walls, "breaker": br.state,
+                           "error": json.loads(body)["error"][:200],
+                           "health_breakers": breakers}
+    finally:
+        for n in made:
+            n.close()
+    return out
+
+
+def front_door_part(part, seed: int, dev) -> dict:
+    """One part of phase 23 with every kernel's launches counted from 0
+    over it: its result, its launches and each kernel's largest
+    difference from its plain version."""
+    from m3_tpu_torch.x import breaker, devguard
+
+    # a node's process-global breakers and stage counters start fresh
+    breaker.reset_registry()
+    devguard.reset_stages()
+    zero_launches()
+    t0 = time.perf_counter()
+    out = part(seed, dev)
+    out["wall_s"] = time.perf_counter() - t0
+    return {"part": out, "launches": read_launches(),
+            "max_abs_err": out.pop("max_abs_err", {})}
+
+
+def federation_lane(seed: int) -> dict:
+    """Phase 23 (b) in a lane of its own: ``front_door_part(federation)``."""
+    import torch
+
+    torch.set_num_threads(LANE_THREADS)
+    lane_wait()
+    return front_door_part(federation, seed, torch.device("cuda"))
+
+
+def front_door_records(kernels: list, a: dict, b: dict, card: str) -> None:
+    """Phase 23's parts into the kernel records: ``graphite_launches``
+    (its path's launches, (a)'s and (b)'s: kernel #1 in (a)'s flush, #2
+    in its volume check, each above 0) and its largest difference from
+    the plain versions."""
+    for k in kernels:
+        name = k["name"]
+        k["graphite_launches"] = a["launches"][name] + b["launches"][name]
+        k["max_abs_err"] = max(k["max_abs_err"], a["max_abs_err"].get(name, 0),
+                               b["max_abs_err"].get(name, 0))
+    launches = {k["name"]: k["graphite_launches"] for k in kernels}
+    assert launches["place_words"] > 0 and launches["extract_fields64_t"] > 0, launches
+    log(f"phase23 [{card}] launches on its path: {launches}")
+    log(f"phase23 [{card}] query federation and the Graphite front door: "
+        + json.dumps({"a": a["part"], "b": b["part"]}))
 
 
 # ---- lanes: phases in processes of their own, beside the main one ----
@@ -6304,15 +6851,16 @@ def main() -> int:
 
     card = card_line()
     t_start = time.perf_counter()
-    # phases 16, 18-19 and 22 run in lanes, processes of their own started
+    # phases 16, 18-19 and 22-23 run in lanes, processes of their own started
     # now and released after phase 11, beside phases 12-15, 20 and 17 in
     # this one (PERF.md §4)
     lanes = []
     try:
         lanes.append(Lane("phase16", downsample_lane, args.seed, card))
         lanes.append(Lane("phases18-19", node_tier_lane, args.seed, card))
-        lanes.append(Lane("phase22", device_control_lane, args.seed,
+        lanes.append(Lane("phases22-23a", device_control_lane, args.seed,
                           env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}))
+        lanes.append(Lane("phase23b", federation_lane, args.seed))
         return run(args, lanes, card, t_start)
     finally:
         for lane in lanes:
@@ -6320,7 +6868,7 @@ def main() -> int:
 
 
 def run(args, lanes: list, card: str, t_start: float) -> int:
-    """Phases 1-22 (see the module docstring); ``lanes`` wait for their
+    """Phases 1-23 (see the module docstring); ``lanes`` wait for their
     release after phase 11."""
     import torch
 
@@ -6582,7 +7130,7 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
     del packed_t
     torch.cuda.empty_cache()
 
-    # ---- the lanes start: phases 16, 18-19 and 22 beside 12-15, 20, 17 ----
+    # ---- the lanes start: phases 16, 18-19 and 22-23 beside 12-15, 20, 17 ----
     for lane in lanes:
         lane.release()
     spans = {}  # phase -> (process, wall start, wall end)
@@ -6645,11 +7193,13 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
     spans["phase17"] = ("main", w0, time.time())
     torch.cuda.empty_cache()
 
-    # ---- the lanes end: phase 16, phases 18-19, phase 22 ----
-    ds_lane, node_lane, ctl_lane = lanes
+    # ---- the lanes end: phase 16, phases 18-19, phases 22-23 ----
+    ds_lane, node_lane, ctl_lane, fed_lane = lanes
     downsample_records(kernels, ds_lane.result(), fwd, card)
     merge_records(kernels, node_lane.result()["records"])
-    device_control_records(kernels, ctl_lane.result(), card)
+    ctl = ctl_lane.result()
+    device_control_records(kernels, ctl, card)
+    front_door_records(kernels, ctl["front_door"], fed_lane.result(), card)
     for lane in lanes:
         spans[lane.name] = (lane.name, *lane.span)
     shared = shared_phases(spans)

@@ -8,8 +8,10 @@ storage.NewDatabase → servers → bootstrap; and the query side
 breakers' knobs, build the instrument registry, the Database (with
 namespaces from config), the control plane (KV, the topology watcher and
 shard migrator), bootstrap (local, then from peers), the RPC listener,
+query federation (the QUERY_FETCH server and the remote stores),
 self-monitoring and the SLO-burn controller, the mediator loop, and the
-HTTP and admin APIs.  `Assembly.close()` tears down in reverse order.
+HTTP, carbon and admin front doors.  `Assembly.close()` tears down in
+reverse order.
 
 The controller registers the reference's actuators but one: the
 ``device_fallback`` actuator (``devguard.force_fallback``) switches
@@ -19,10 +21,13 @@ The node runs on ``device`` (None = CUDA; raises without a card).  The
 reference's process-global env seams have no counterpart:
 ``coordinator.arena_layout`` becomes the downsampler's layout argument,
 and ``coordinator.arena_ingest`` may only name what the port does anyway
-(``auto``: each arena ingest routes by its tensor's device).  A config
-that asks for a subsystem this package does not have is refused with a
-:class:`ConfigError` naming the missing module (:data:`UNPORTED`), never
-ignored.
+(``auto``: each arena ingest routes by its tensor's device); any other
+value is refused with a :class:`ConfigError`, never ignored.
+
+Carbon has no acknowledgement channel: a batch the card refuses (a typed
+``x.devguard.DeviceError`` from the buffer append, counted on its stage)
+is dropped and the connection keeps serving, where the reference stages
+it on the host.
 """
 
 from __future__ import annotations
@@ -41,33 +46,15 @@ from m3_tpu_torch.storage.mediator import Mediator
 
 _LOG = instrument.logger("server.assembly")
 
-# (config field, predicate on the NodeConfig, the reference module it
-# needs): run_node refuses each one that is set
-UNPORTED = (
-    ("coordinator.carbon_listen_port",
-     lambda c: (c.coordinator is not None
-                and c.coordinator.carbon_listen_port is not None),
-     "m3_tpu/metrics/carbon.py"),
-    ("query.listen_port", lambda c: c.query.listen_port is not None,
-     "m3_tpu/query/remote.py"),
-    ("query.remotes", lambda c: bool(c.query.remotes),
-     "m3_tpu/query/fanout.py and m3_tpu/query/remote.py"),
-)
-
-
 def refuse_unported(cfg: NodeConfig) -> None:
-    """Raise one ConfigError naming every set field whose subsystem this
-    package does not have, and the module each needs."""
-    errs = [f"{field}: {module} is not ported"
-            for field, is_set, module in UNPORTED if is_set(cfg)]
+    """Raise a ConfigError for an ``arena_ingest`` the port has no
+    counterpart for (it routes each ingest by its tensor's device)."""
     if cfg.coordinator is not None and cfg.coordinator.arena_ingest not in (
             "", "auto"):
-        errs.append(
+        raise ConfigError(
             f"coordinator.arena_ingest: {cfg.coordinator.arena_ingest!r} has "
             "no counterpart (each arena ingest routes by its tensor's "
             "device, the reference's 'auto')")
-    if errs:
-        raise ConfigError("; ".join(errs))
 
 
 @dataclasses.dataclass
@@ -77,6 +64,7 @@ class Assembly:
     db: Database
     mediator: Mediator | None
     http_server: object | None
+    carbon_server: object | None = None
     tracer: object | None = None
     admin_server: object | None = None
     kv: object | None = None
@@ -85,6 +73,8 @@ class Assembly:
     scrubber: object | None = None
     topology: object | None = None   # cluster.topology.TopologyWatcher
     migrator: object | None = None   # storage.migration.ShardMigrator
+    query_server: object | None = None  # query.remote.QueryServer
+    remote_stores: list = dataclasses.field(default_factory=list)
     downsampler: object | None = None   # coordinator.downsample.Downsampler
     checkpointer: object | None = None  # aggregator.checkpoint.AggregatorCheckpointer
     selfmon: object | None = None       # instrument.selfmon.SelfMonitor
@@ -99,17 +89,30 @@ class Assembly:
         return self.rpc_server.port if self.rpc_server else None
 
     @property
+    def query_port(self) -> int | None:
+        return self.query_server.port if self.query_server else None
+
+    @property
+    def carbon_port(self) -> int | None:
+        return self.carbon_server.port if self.carbon_server else None
+
+    @property
     def admin_port(self) -> int | None:
         return self.admin_server.server_address[1] if self.admin_server else None
 
     def close(self) -> None:
-        """Stop the listeners (RPC, admin, HTTP), join the mediator (a
+        """Release the peer handles and remote stores, stop the
+        listeners (query, RPC, admin, carbon, HTTP), join the mediator (a
         pass in flight finishes first), release the migrator, the
         topology watch and the KV client, then close the database."""
         for h in self.peer_handles:
             h.close()
         self.peer_handles = []
-        for attr in ("rpc_server", "admin_server", "http_server"):
+        for r in self.remote_stores:
+            r.close()
+        self.remote_stores = []
+        for attr in ("query_server", "rpc_server", "admin_server",
+                     "carbon_server", "http_server"):
             srv = getattr(self, attr)
             if srv is not None:
                 srv.shutdown()
@@ -136,10 +139,12 @@ class Assembly:
         shards to cut over to their new owners → tear down.  The RPC
         listener stays up until the very end so peers can stream this
         node's blocks throughout the handoff window."""
-        if self.http_server is not None:
-            self.http_server.shutdown()
-            self.http_server.server_close()
-            self.http_server = None
+        for attr in ("carbon_server", "http_server"):
+            srv = getattr(self, attr)
+            if srv is not None:
+                srv.shutdown()
+                srv.server_close()
+                setattr(self, attr, None)
         if self.mediator is not None:
             self.mediator.close()
             self.mediator = None
@@ -251,6 +256,44 @@ def namespace_options(ns_cfg) -> NamespaceOptions:
     )
 
 
+def carbon_sink(db, ns_name: str, downsampler=None):
+    """The carbon listener's sink: the same downsample-then-write path
+    as HTTP writes (the reference's carbon ingester feeds the
+    downsampler too), so rules apply whatever the ingest protocol."""
+    import numpy as np
+
+    from m3_tpu_torch.storage.database import ShardNotOwnedError
+    from m3_tpu_torch.x.devguard import DeviceError
+
+    def sink(docs, ts, vals):
+        keep = None
+        if downsampler is not None:
+            keep = downsampler.write_batch(docs, ts, vals)
+        if keep is not None:
+            idx = np.nonzero(keep)[0]
+            if not len(idx):
+                return
+            docs = [docs[i] for i in idx]
+            ts, vals = ts[idx], vals[idx]
+        try:
+            db.write_tagged_batch(ns_name, docs, ts, vals)
+        except ShardNotOwnedError:
+            # Placement-scoped node fed carbon traffic for shards it does
+            # not own: carbon has no ack channel to push back on, and the
+            # connection thread must survive (mixed batches partial-accept
+            # inside write_batch; only an ALL-unowned flush lands here).
+            # Counted via db's shard_not_owned.
+            pass
+        except DeviceError:
+            # The card refused the append (counted on the
+            # storage.buffer_append stage); nothing was logged or
+            # acknowledged, and the connection goes on serving.
+            _LOG.warning("carbon: dropped a batch of %d samples the "
+                         "device refused", len(docs), exc_info=True)
+
+    return sink
+
+
 def run_node(source, start_mediator: bool | None = None,
              serve_http: bool = True, ruleset=None, device=None) -> Assembly:
     """Boot a node from a YAML/JSON path or string, or a NodeConfig.
@@ -349,9 +392,10 @@ def run_node(source, start_mediator: bool | None = None,
         limits=limits,
         device=device,
     )
-    # Tear down everything already started if a later step fails — a
-    # half-built node must not leak its mediator thread or bound socket.
-    asm = Assembly(cfg, registry, db, None, None, tracer)
+    # Tear down everything already started if a later step fails (e.g.
+    # the carbon port is taken) — a half-built node must not leak its
+    # mediator thread or bound socket.
+    asm = Assembly(cfg, registry, db, None, None, tracer=tracer)
     try:
         # Control plane FIRST: the topology watcher must install this
         # node's shard ownership before bootstrap so WAL replay and the
@@ -420,6 +464,41 @@ def run_node(source, start_mediator: bool | None = None,
                 # (typed RPC_ERR the session's consistency level
                 # absorbs); reads/repair/ticks are never gated.
                 asm.rpc_server.ingest_gate = _diskbudget.check_ingest
+
+        # Query federation (query/remote): serve THIS node's storage to
+        # peer coordinators over QUERY_FETCH, and/or federate peer
+        # coordinators' stores into this node's engine.  Each remote
+        # gets the process-shared per-peer circuit breaker so a dead
+        # region fails fast for every query at once.
+        ns0 = (cfg.coordinator.namespace if cfg.coordinator is not None
+               else "default")
+        if cfg.query.listen_port is not None:
+            from m3_tpu_torch.query.remote import serve_query_background
+            from m3_tpu_torch.query.storage_adapter import DatabaseStorage
+
+            asm.query_server = serve_query_background(
+                DatabaseStorage(db, ns0),
+                host=(cfg.coordinator.listen_host
+                      if cfg.coordinator is not None else "127.0.0.1"),
+                port=cfg.query.listen_port,
+                tracer=tracer,
+            )
+        if cfg.query.remotes:
+            from m3_tpu_torch.query.remote import RemoteStorage
+            from m3_tpu_torch.x.breaker import breaker_for
+
+            breaker_reset_s = parse_duration(cfg.query.breaker_reset) / 1e9
+            asm.remote_stores = [
+                RemoteStorage(
+                    (h, int(p)),
+                    timeout_s=parse_duration(cfg.query.default_timeout) / 1e9,
+                    breaker=breaker_for(
+                        f"query:{h}:{p}",
+                        failure_threshold=cfg.query.breaker_failures,
+                        reset_timeout_s=breaker_reset_s),
+                )
+                for h, _, p in (a.rpartition(":") for a in cfg.query.remotes)
+            ]
 
         # Corruption scrubber: always constructed (the admin endpoint
         # scrubs on demand); attached to the mediator loop only when a
@@ -556,6 +635,8 @@ def run_node(source, start_mediator: bool | None = None,
                 admission=admission,
                 query_timeout_s=parse_duration(cfg.query.default_timeout) / 1e9,
                 slow_query_fraction=cfg.query.slow_query_fraction,
+                remotes=asm.remote_stores,
+                remotes_required=cfg.query.remotes_required,
                 checkpointer=asm.checkpointer,
                 migrator=asm.migrator,
                 selfmon=asm.selfmon,
@@ -575,6 +656,15 @@ def run_node(source, start_mediator: bool | None = None,
             registry.register_collector(collect_query)
             asm.http_server = serve_background(
                 ctx, cfg.coordinator.listen_host, cfg.coordinator.listen_port
+            )
+        if (serve_http and cfg.coordinator is not None
+                and cfg.coordinator.carbon_listen_port is not None):
+            from m3_tpu_torch.metrics.carbon import serve_carbon_background
+
+            asm.carbon_server = serve_carbon_background(
+                carbon_sink(db, cfg.coordinator.namespace, downsampler),
+                cfg.coordinator.listen_host, cfg.coordinator.carbon_listen_port,
+                instrument=scope,
             )
         if (serve_http and cfg.coordinator is not None
                 and cfg.coordinator.admin_listen_port is not None):

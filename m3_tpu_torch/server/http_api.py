@@ -8,19 +8,24 @@ pointed at `/api/v1/query_range` works unchanged — the same
 compatibility target the reference serves.
 
 Read-path overload contract (`/api/v1/query`, `/api/v1/query_range`,
-`/api/v1/prom/remote/read`):
+`/render`, `/api/v1/prom/remote/read`):
 
 * ``timeout=`` query param (seconds or a duration like ``30s``/``2m``)
   sets the query's END-TO-END deadline, defaulting to the
   ``query.default_timeout`` config; the deadline is threaded through
-  the engine (x/deadline).
+  the engine, fanout and every wire hop (x/deadline), and partial
+  results from non-required fanout sources surface in the Prometheus
+  ``warnings`` response field.
 * Status mapping: **429** a per-query resource limit tripped
-  (``QueryLimitExceeded``) — client should back off; **503 +
-  Retry-After** admission control shed the query (``QueryShedError``:
-  concurrency slots and wait queue full) — retry after the hinted
-  delay; **504** the deadline was exceeded (``DeadlineExceeded``,
-  including cooperative cancellation) — retry with a longer
-  ``timeout=`` or narrower query.
+  (``QueryLimitExceeded``, local or remote) — client should back off;
+  **503 + Retry-After** admission control shed the query
+  (``QueryShedError``: concurrency slots and wait queue full) — retry
+  after the hinted delay; **504** the deadline was exceeded
+  (``DeadlineExceeded``, including cooperative cancellation) — retry
+  with a longer ``timeout=`` or narrower query.  Multiple REQUIRED
+  fanout sources failing together (``PartialResultError``) map by the
+  dominant cause: 504 if any missed the deadline, 429 if any tripped a
+  limit, else **502**.
 * Queries spending more than ``query.slow_query_fraction`` of their
   deadline land in the slow-query log (`/health` ``query.slow`` +
   ``slow_query_total`` on /metrics) with per-phase timings.
@@ -30,14 +35,13 @@ Read-path overload contract (`/api/v1/query`, `/api/v1/query_range`,
 
 The port's counterpart of ``m3_tpu/server/http_api.py``: the same routes,
 status codes and response bodies over the port's ``Database`` and
-``Engine`` (on the database's device).  Not ported here, and answered
-501 with the missing module named: the Graphite routes (``/render``,
-``/metrics/find``: ``query/graphite.py``).  There is no query federation
-(``query/fanout.py``, ``query/remote.py``): the engine reads the local
-database only.  One status differs on purpose: a typed device error
-(``x.devguard.DeviceError``) answers **503 + Retry-After** — the port
-refuses a write the card cannot take (it has no host staging), and a
-client must retry it, not drop it as a 4xx tells it to.
+``Engine`` (on the database's device), the Graphite engine
+(``/render``, ``/metrics/find``) and the federated default engine (the
+local database plus ``query.remotes``).  One status differs on purpose:
+a typed device error (``x.devguard.DeviceError``) answers **503 +
+Retry-After** — the port refuses a write the card cannot take (it has
+no host staging), and a client must retry it, not drop it as a 4xx
+tells it to.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ from m3_tpu_torch.index.doc import Document
 from m3_tpu_torch.index.search import All
 from m3_tpu_torch.instrument.tracing import NOOP_TRACER, Tracepoint, traces_response
 from m3_tpu_torch.query.engine import Engine
+from m3_tpu_torch.query.fanout import FederatedStorage, PartialResultError
 from m3_tpu_torch.query.storage_adapter import DatabaseStorage
 from m3_tpu_torch.storage.database import Database, ShardNotOwnedError
 from m3_tpu_torch.storage.limits import QueryLimitExceeded
@@ -67,12 +72,6 @@ from m3_tpu_torch.x.deadline import Deadline, DeadlineExceeded
 from m3_tpu_torch.x.devguard import DeviceError
 
 _DUR_RE = re.compile(r"^(\d+(?:\.\d+)?)([smhdwy]|ms)$")
-
-# routes of the reference API whose module is not ported -> that module
-_NOT_PORTED = {
-    "/render": "m3_tpu/query/graphite.py",
-    "/metrics/find": "m3_tpu/query/graphite.py",
-}
 
 
 def _parse_time(v: str) -> int:
@@ -115,7 +114,15 @@ class _Handler(BaseHTTPRequestHandler):
     def _overload_status(self, e: Exception) -> None:
         """The typed overload and device errors → HTTP status (see
         module docstring: 429 limit / 503 shed / 504 deadline / 503
-        device) — these are server-side failures, never a 400."""
+        device).  A multi-source ``PartialResultError`` maps by its
+        dominant cause — these are server-side failures, never a 400."""
+        if isinstance(e, PartialResultError):
+            causes = e.failures.values()
+            if any(isinstance(c, DeadlineExceeded) for c in causes):
+                return self._error(504, str(e))
+            if any(isinstance(c, QueryLimitExceeded) for c in causes):
+                return self._error(429, str(e))
+            return self._error(502, str(e))
         if isinstance(e, QueryLimitExceeded):
             return self._error(429, str(e))
         if isinstance(e, QueryShedError):
@@ -158,9 +165,6 @@ class _Handler(BaseHTTPRequestHandler):
                 return self._faults()
             if u.path == "/debug/dump":
                 return self._debug_dump(q)
-            if u.path in _NOT_PORTED:
-                return self._error(
-                    501, f"{u.path}: {_NOT_PORTED[u.path]} is not ported")
             if u.path in ("/api/v1/query_range", "/api/v1/query"):
                 return self._query(u.path.endswith("query_range"), q)
             if u.path == "/api/v1/labels":
@@ -170,9 +174,13 @@ class _Handler(BaseHTTPRequestHandler):
                 return self._label_values(name, q)
             if u.path == "/api/v1/series":
                 return self._series(q)
+            if u.path == "/render":
+                return self._render(q)
+            if u.path == "/metrics/find":
+                return self._find(q)
             return self._error(404, f"unknown path {u.path}")
         except (QueryLimitExceeded, QueryShedError, DeadlineExceeded,
-                DeviceError) as e:
+                PartialResultError, DeviceError) as e:
             return self._overload_status(e)
         except Exception as e:  # noqa: BLE001 — API boundary
             return self._error(400, str(e))
@@ -195,7 +203,7 @@ class _Handler(BaseHTTPRequestHandler):
                 return self._faults(json.loads(self._body() or b"{}"))
             return self._error(404, f"unknown path {u.path}")
         except (QueryLimitExceeded, QueryShedError, DeadlineExceeded,
-                DeviceError) as e:
+                PartialResultError, DeviceError) as e:
             return self._overload_status(e)
         except Exception as e:  # noqa: BLE001
             return self._error(400, str(e))
@@ -388,6 +396,53 @@ class _Handler(BaseHTTPRequestHandler):
         self.send_header("Content-Length", str(len(data)))
         self.end_headers()
         self.wfile.write(data)
+
+    def _render(self, q):
+        """Graphite render endpoint (reference
+        `query/api/v1/handler/graphite/render.go`): JSON list of
+        {target, datapoints: [[value|null, unix_seconds], ...]}."""
+        import math as _math
+        import time as _time
+
+        from m3_tpu_torch.query.graphite import parse_graphite_time
+
+        now = _time.time_ns()
+        start = parse_graphite_time(q.get("from", ["-1h"])[0], now)
+        end = parse_graphite_time(q.get("until", ["now"])[0], now)
+        step = _parse_step(q.get("step", ["10s"])[0])
+        dl = self._deadline(q)
+        out = []
+        targets = q.get("target", [])
+        try:
+            with self.ctx.admission.admit(deadline=dl), xdeadline.bind(dl):
+                for target in targets:
+                    for s in self.ctx.graphite.render(target, start, end,
+                                                      step):
+                        step_s = s.step_nanos / 1e9
+                        out.append({
+                            "target": s.name,
+                            "datapoints": [
+                                [None if _math.isnan(v) else v,
+                                 int(s.start_nanos / 1e9 + i * step_s)]
+                                for i, v in enumerate(s.values.tolist())
+                            ],
+                        })
+        except Exception as e:  # noqa: BLE001 — observed, then re-raised
+            self.ctx.observe_query("graphite", ";".join(targets), dl, error=e)
+            raise
+        self.ctx.observe_query("graphite", ";".join(targets), dl)
+        return self._json(200, out)
+
+    def _find(self, q):
+        """Graphite find endpoint (reference handler/graphite/find.go)."""
+        pattern = q["query"][0]
+        prefix = pattern.rsplit(".", 1)[0] + "." if "." in pattern else ""
+        out = [
+            {"text": name, "id": prefix + name, "leaf": 1 if leaf else 0,
+             "expandable": 1 if expandable else 0}
+            for name, leaf, expandable in self.ctx.graphite.storage.find(pattern)
+        ]
+        return self._json(200, out)
 
     def _traces(self, q=None):
         """Span-ring debug surface (reference x/debug's introspection
@@ -679,14 +734,15 @@ class ApiContext:
     """What the handlers serve: the database, its engine (on the
     database's device), admission, deadlines and the latency
     histograms, the shard migrator, the self-monitor and the controller
-    whose status ``/health`` serves.  The reference's federation hooks
-    have no port and no parameter here."""
+    whose status ``/health`` serves, the remote stores the default
+    engine federates, and the Graphite engine."""
 
     def __init__(self, db: Database, namespace: str = "default",
                  downsampler=None, registry=None, tracer=None,
                  admission: AdmissionController | None = None,
                  query_timeout_s: float = 30.0,
                  slow_query_fraction: float = 0.75,
+                 remotes=None, remotes_required: bool = False,
                  metrics_scope=None, checkpointer=None, migrator=None,
                  selfmon=None, controller=None):
         self.db = db
@@ -731,13 +787,28 @@ class ApiContext:
                 "eval": qscope.tagged({"phase": "eval"}).histogram(
                     "phase_seconds"),
             }
-        self.engine = Engine(DatabaseStorage(db, namespace), tracer=tracer,
-                             device=db.device)
+        # cross-coordinator federation: remote stores (query/remote
+        # RemoteStorage) merged best-effort with the local database
+        # unless remotes_required
+        self.remotes = list(remotes or [])
+        local = DatabaseStorage(db, namespace)
+        if self.remotes:
+            stores = [local] + self.remotes
+            required = [0] + (list(range(1, len(stores)))
+                              if remotes_required else [])
+            storage = FederatedStorage(stores, required=required)
+        else:
+            storage = local
+        self.engine = Engine(storage, tracer=tracer, device=db.device)
+        from m3_tpu_torch.query.graphite import GraphiteEngine, GraphiteStorage
+
+        self.graphite = GraphiteEngine(GraphiteStorage(db, namespace))
 
     def engine_for(self, namespace: str | None) -> Engine:
         """The engine serving one namespace: the default request path
-        keeps the default-namespace engine; ``namespace=`` gets a
-        local-storage engine over that namespace, interned per name."""
+        keeps the federated default-namespace engine; ``namespace=``
+        gets a local-storage engine over that namespace, interned per
+        name."""
         if namespace is None or namespace == self.namespace:
             return self.engine
         if namespace not in self.db.namespaces:

@@ -2,19 +2,27 @@
 
 One YAML text through both loaders gives equal ``dataclasses.asdict``
 (env expansion included); invalid configs raise the same ``ConfigError``
-text; JSON text loads to the same config; ``run_node`` refuses, by
-name, every section whose subsystem the port does not have, and builds
-the replicated cluster's sections (RPC, peers, remote KV, instance id,
-admin port).
+text; JSON text loads to the same config; ``run_node`` refuses an
+``arena_ingest`` it has no counterpart for, builds the replicated
+cluster's sections (RPC, peers, remote KV, instance id, admin port), and
+boots with each front-door section (the carbon port, the query listener,
+query remotes) to answer as the JAX node does.
 """
 
 import dataclasses
 import json
+import socket
+import time
+import urllib.request
 
+import numpy as np
 import pytest
 
 from m3_tpu.core import config as jc
+from m3_tpu.server import assembly as jasm
 from m3_tpu_torch.core import config as tc
+from m3_tpu_torch.query import promql as tpromql
+from m3_tpu_torch.query import remote as trem
 from m3_tpu_torch.server import assembly as tasm
 
 FULL = """
@@ -123,15 +131,12 @@ def test_parse_duration_equal(v):
     assert tc.parse_duration(v) == jc.parse_duration(v)
 
 
-UNPORTED = [
-    ("coordinator: {carbon_listen_port: 0}", "m3_tpu/metrics/carbon.py"),
-    ("query: {listen_port: 0}", "m3_tpu/query/remote.py"),
-    ("query: {remotes: ['127.0.0.1:9']}", "m3_tpu/query/fanout.py"),
+REFUSED = [
     ("coordinator: {arena_ingest: pallas}", "has no counterpart"),
 ]
 
 
-@pytest.mark.parametrize("text,module", UNPORTED)
+@pytest.mark.parametrize("text,module", REFUSED)
 def test_unported_sections_refuse(tmp_path, text, module):
     cfg = tc.load_config(f"{text}\n")
     cfg.db.root = str(tmp_path)
@@ -200,3 +205,119 @@ def test_device_and_control_sections_are_accepted(tmp_path, text, part):
 
 def test_arena_ingest_auto_is_accepted():
     tasm.refuse_unported(tc.load_config("coordinator: {arena_ingest: auto}\n"))
+
+
+# -- the front doors: carbon, the query listener, query remotes -------------
+
+T0 = 1_700_000_000  # seconds
+FRONT_DOORS = ["coordinator: {listen_port: 0, carbon_listen_port: 0}",
+               "coordinator: {listen_port: 0}\nquery: {listen_port: 0}",
+               "coordinator: {listen_port: 0}\nquery: {remotes: ['127.0.0.1:{peer}']}"]
+
+
+def _get(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
+        return r.status, r.read()
+
+
+def _json_write(port, region: str, n: int = 6):
+    rows = [{"tags": {"__name__": "reqs", "region": region, "host": f"h{i % 2}"},
+             "timestamp": T0 + k, "value": float(k * (i + 1))}
+            for k in range(n) for i in range(2)]
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/api/v1/json/write",
+                                 data=json.dumps(rows).encode(), method="POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        assert r.status == 200
+
+
+def _carbon_lines():
+    rng = np.random.default_rng(9)
+    return [(f"m3.dc0.host{i}.cpu", repr(float(v)), T0 + 10 * k)
+            for k in range(4) for i, v in enumerate(rng.normal(50, 10, 3))]
+
+
+def _carbon_readback(asm, lines) -> bytes:
+    with socket.create_connection(("127.0.0.1", asm.carbon_port)) as s:
+        s.sendall("".join(f"{p} {v} {t}\n" for p, v, t in lines).encode())
+    path = f"/render?target=m3.dc0.*.cpu&from={T0}&until={T0 + 40}&step=10s"
+    deadline = time.monotonic() + 60
+    while True:
+        st, body = _get(asm.port, path)
+        got = json.loads(body)
+        if st == 200 and sum(v is not None for s in got
+                             for v, _ in s["datapoints"]) == len(lines):
+            return body
+        assert time.monotonic() < deadline, body
+        time.sleep(0.05)
+
+
+@pytest.mark.parametrize("section", ["carbon_listen_port", "listen_port", "remotes"])
+def test_front_door_sections_boot_and_answer_like_jax(tmp_path, section):
+    text = FRONT_DOORS[["carbon_listen_port", "listen_port", "remotes"].index(section)]
+    peer = None
+    if section == "remotes":  # the remote region: a port node's query listener
+        peer = tasm.run_node(f"db: {{root: {tmp_path / 'peer'}}}\n"
+                             "coordinator: {listen_port: 0}\nquery: {listen_port: 0}\n"
+                             "mediator: {enabled: false}\n", device="cpu")
+        _json_write(peer.port, "eu")
+        text = text.replace("{peer}", str(peer.query_port))
+    nodes = {}
+    try:
+        for side, run in (("torch", lambda c: tasm.run_node(c, device="cpu")),
+                          ("jax", jasm.run_node)):
+            nodes[side] = run(f"db: {{root: {tmp_path / side}}}\n{text}\n"
+                              "mediator: {enabled: false}\n")
+        answers = {}
+        for side, asm in nodes.items():
+            if section == "carbon_listen_port":
+                answers[side] = _carbon_readback(asm, _carbon_lines())
+            elif section == "listen_port":
+                _json_write(asm.port, "us")
+                store = trem.RemoteStorage(("127.0.0.1", asm.query_port))
+                try:
+                    blk = store.fetch_raw(b"reqs", (tpromql.LabelMatcher(
+                        b"region", "=", b"us"),), T0 * 10**9, (T0 + 60) * 10**9)
+                finally:
+                    store.close()
+                answers[side] = ([m.tags for m in blk.series], blk.ts.tolist(),
+                                 blk.values.tolist(), blk.counts.tolist())
+            else:
+                _json_write(asm.port, "us")
+                st, body = _get(asm.port, "/api/v1/query_range?query=sum+by+(region)+(reqs)"
+                                f"&start={T0}&end={T0 + 5}&step=1s")
+                assert st == 200
+                answers[side] = json.loads(body)
+        assert answers["torch"] == answers["jax"]
+        if section == "carbon_listen_port":
+            got = {s["target"]: [v for v, _ in s["datapoints"]]
+                   for s in json.loads(answers["torch"])}
+            for p, v, t in _carbon_lines():
+                assert got[p][(t - T0) // 10] == float(v)
+        elif section == "listen_port":
+            assert len(answers["torch"][0]) == 2
+        else:
+            res = answers["torch"]["data"]["result"]
+            assert sorted(r["metric"]["region"] for r in res) == ["eu", "us"]
+    finally:
+        for asm in nodes.values():
+            asm.close()
+        if peer is not None:
+            peer.close()
+
+
+def test_tracing_node_with_carbon_keeps_each_part(tmp_path):
+    """``coordinator.tracing`` and ``carbon_listen_port`` together: the
+    node's tracer and its carbon listener each land in their own field,
+    and ``close()`` stops the listener."""
+    from m3_tpu_torch.instrument.tracing import Tracer
+    from m3_tpu_torch.metrics.carbon import CarbonServer
+
+    asm = tasm.run_node(f"db: {{root: {tmp_path}}}\ncoordinator: {{listen_port: 0, "
+                        "carbon_listen_port: 0, tracing: true}\n"
+                        "mediator: {enabled: false}\n", device="cpu")
+    try:
+        assert isinstance(asm.tracer, Tracer)
+        assert isinstance(asm.carbon_server, CarbonServer) and asm.carbon_port
+    finally:
+        asm.close()
+    assert asm.carbon_server is None and asm.http_server is None

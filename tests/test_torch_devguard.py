@@ -264,3 +264,51 @@ def test_refused_allocation_is_counted_and_released(monkeypatch, clean_guard):
     assert tmb.used() == used
     doc = tdg.status()["stages"]["storage.buffer_append"]
     assert doc == {"errors": {"oom": 1}, "breaker": "open"}
+
+
+def test_carbon_batch_the_card_refuses_is_counted_and_the_connection_serves_on(
+        tmp_path, clean_guard):
+    """Carbon has no acknowledgement channel: a batch whose append the
+    device refuses is counted on ``storage.buffer_append`` and dropped,
+    and the same connection's later lines are stored (the reference
+    stages the batch on the host and stores it: a stated difference)."""
+    import socket
+
+    asm = tasm.run_node(_config(tmp_path).replace(
+        "{listen_port: 0}", "{listen_port: 0, carbon_listen_port: 0}"), device="cpu")
+    paths = [b"m3.host%d.cpu" % i for i in range(8)]
+
+    def lines(k):
+        return b"".join(b"%s %d %d\n" % (p, 100 * k + i, (T0 + k * 10 * SEC) // SEC)
+                        for i, p in enumerate(paths))
+
+    def stored():
+        return {p: asm.db.read("default", p, T0, T0 + 3600 * SEC) for p in paths}
+
+    def stage():
+        return tdg.status()["stages"].get("storage.buffer_append", {})
+
+    def wait(pred):
+        deadline = time.monotonic() + 30
+        while not pred():
+            assert time.monotonic() < deadline
+            time.sleep(0.02)
+
+    try:
+        with socket.create_connection(("127.0.0.1", asm.carbon_port)) as s:
+            s.sendall(lines(0))
+            wait(lambda: all(stored().values()))
+            tfault.arm("device.dispatch", "error")
+            s.sendall(lines(1))
+            wait(lambda: stage().get("errors"))
+            tfault.disarm("device.dispatch")
+            time.sleep(0.06)  # breaker_reset: the next append is the probe
+            s.sendall(lines(2))
+            wait(lambda: all(len(v) == 2 for v in stored().values()))
+        assert stage()["errors"] == {"oom": 1}
+        assert stored() == {p: [(T0 + k * 10 * SEC, float(100 * k + i)) for k in (0, 2)]
+                            for i, p in enumerate(paths)}
+        metrics = _call(asm.port, "/metrics")[1].decode()
+        assert "m3tpu_carbon_samples 24" in metrics  # parsed and handed on
+    finally:
+        asm.close()

@@ -1253,3 +1253,75 @@ def test_codec_stages_count_on_card():
         assert membudget.used() - used in (0, 1 << 20)  # the control table, once
     finally:
         devguard.reset_stages()
+
+
+@pytest.mark.gpu
+def test_carbon_flush_render_and_federation_on_card_equal_cpu(tmp_path):
+    """A node on the card and one on the CPU, each with
+    ``coordinator.carbon_listen_port``, take the same carbon lines: the
+    /render and /metrics/find bodies are byte-equal before and after a
+    mediator pass past the block (whose warm flush launches kernel #1
+    on the card).  Then a second node on each device federates the
+    first through ``query.remotes``: one federated query byte-equal
+    between the two devices."""
+    import json
+    import socket
+    import time
+    import urllib.parse
+    import urllib.request
+
+    from m3_tpu_torch.server.assembly import run_node
+
+    dev = _cuda_or_skip()
+    block = 2 * 3600 * SEC
+    t0 = START // block * block
+    rng = np.random.default_rng(23)
+    lines = "".join(f"m3.dc{i % 4}.host{i // 4}.cpu {float(v)!r} {(t0 + k * 10 * SEC) // SEC}\n"
+                    for k in range(30) for i, v in enumerate(rng.normal(50, 10, 64)))
+    win = f"&from={t0 // SEC}&until={(t0 + 300 * SEC) // SEC}&step=10s"
+    reads = ["/render?target=" + urllib.parse.quote(t) + win for t in (
+        "m3.*.*.cpu", "sumSeries(m3.dc0.*.cpu)", 'groupByNode(m3.*.*.cpu, 1, "sum")',
+        "aliasByNode(highestAverage(m3.dc1.*.cpu, 3), 2)",
+        'summarize(m3.dc3.*.cpu, "1min", "sum")')] + ["/metrics/find?query=m3.dc0.*"]
+    fed_q = (f"/api/v1/query_range?query=sum+by+(host)+(reqs)&start={t0 // SEC}"
+             f"&end={(t0 + 50 * SEC) // SEC}&step=10")
+    rows = json.dumps([{"tags": {"__name__": "reqs", "host": f"h{i}"},
+                        "timestamp": (t0 + k * 10 * SEC) // SEC, "value": float(i + k)}
+                       for k in range(6) for i in range(8)]).encode()
+    answers = {}
+    for d in ("cpu", dev):
+        tag = str(d).replace(":", "")
+        a = run_node(f"db: {{root: {tmp_path / (tag + 'a')}}}\n"
+                     "coordinator: {listen_port: 0, carbon_listen_port: 0}\n"
+                     "query: {listen_port: 0}\nmediator: {tick_interval: 1h}\n", device=d)
+        b = None
+        try:
+            base = f"http://127.0.0.1:{a.port}"
+            with socket.create_connection(("127.0.0.1", a.carbon_port)) as s:
+                s.sendall(lines.encode())
+            deadline = time.monotonic() + 120
+            while sum(v is not None for r in json.loads(urllib.request.urlopen(
+                    base + reads[0]).read()) for v, _ in r["datapoints"]) < 30 * 64:
+                assert time.monotonic() < deadline
+                time.sleep(0.05)
+            got = [urllib.request.urlopen(base + r).read() for r in reads]
+            before = ep.launches
+            a.mediator.run_once(t0 + block + 11 * 60 * SEC)
+            if d == dev:
+                assert ep.launches > before
+            got += [urllib.request.urlopen(base + r).read() for r in reads]
+            urllib.request.urlopen(urllib.request.Request(
+                base + "/api/v1/json/write", data=rows)).read()
+            b = run_node(f"db: {{root: {tmp_path / (tag + 'b')}}}\n"
+                         "coordinator: {listen_port: 0}\n"
+                         f"query: {{remotes: ['127.0.0.1:{a.query_port}']}}\n"
+                         "mediator: {enabled: false}\n", device=d)
+            got.append(urllib.request.urlopen(f"http://127.0.0.1:{b.port}" + fed_q).read())
+            answers[str(d)] = got
+        finally:
+            if b is not None:
+                b.close()
+            a.close()
+    assert answers["cpu"] == answers[str(dev)]
+    assert answers["cpu"][:len(reads)] == answers["cpu"][len(reads):2 * len(reads)]
+    assert len(json.loads(answers["cpu"][-1])["data"]["result"]) == 8

@@ -43,7 +43,9 @@ def test_every_module_imports_with_jax_blocked():
               # the device boundary and the control plane
               "x.devguard", "x.membudget", "instrument.exposition",
               "query.slo", "instrument.selfmon", "instrument.debug",
-              "x.controller", "x.chaos", "ctl", "ctl.r2"):
+              "x.controller", "x.chaos", "ctl", "ctl.r2",
+              # query federation and the Graphite front door
+              "metrics.carbon", "query.graphite", "query.fanout", "query.remote"):
         assert f"m3_tpu_torch.{m}" in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

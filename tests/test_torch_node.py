@@ -7,8 +7,8 @@ own root and on an ephemeral port (the JAX node as
 ``device="cpu"``), and get one scripted sequence of requests: JSON,
 Prometheus remote and Influx writes, ``query_range`` (GET and POST),
 ``query``, labels, label values, series, remote read, a ``timeout=0``
-query and read (504 in both), ``/metrics``, ``/health`` and the
-faultpoint surface.  Status codes, written counts and metadata answers
+query and read (504 in both), the Graphite routes (byte-equal bodies),
+``/metrics``, ``/health`` and the faultpoint surface.  Status codes, written counts and metadata answers
 must be exact; query values within ``rtol`` 1e-12 (the tolerance of
 ``tests/test_torch_query_engine.py`` for these families); the remote
 read body byte-equal.  Then ``mediator.run_once`` on the same clock past
@@ -28,10 +28,12 @@ import math
 import os
 import pathlib
 import signal
+import socket
 import subprocess
 import sys
 import time
 import urllib.error
+import urllib.parse
 import urllib.request
 import zipfile
 
@@ -44,6 +46,7 @@ import m3_tpu.server.prom_remote as jpr
 import m3_tpu_torch.metrics.rules_json as trj
 import m3_tpu_torch.server.assembly as tasm
 import m3_tpu_torch.server.prom_remote as tpr
+from tests.test_torch_control_node import _fresh_process_counters
 
 BLOCK = 2 * 3600 * 10**9
 START = (1_700_000_000 * 10**9) // BLOCK * BLOCK
@@ -207,6 +210,17 @@ def _reads(port, mod):
     return out
 
 
+GRAPHITE_WINDOW = f"&from={START // SEC}&until={T_END}&step=30s"
+GRAPHITE_READS = [
+    "/render?target=x" + GRAPHITE_WINDOW,
+    "/render?target=constantLine(3)&target=identity(%22t%22)" + GRAPHITE_WINDOW,
+    "/render?target=sumSeries(http_requests_total)" + GRAPHITE_WINDOW,
+    "/render?target=nosuch(x)" + GRAPHITE_WINDOW,
+    "/metrics/find?query=x",
+    "/metrics/find?query=*",
+]
+
+
 def _same_reads(t, j):
     assert {k: v[0] for k, v in t.items()} == {k: v[0] for k, v in j.items()}
     for k in [f"q{i}" for i in range(len(QUERIES))] + ["post"]:
@@ -221,6 +235,10 @@ def _same_reads(t, j):
 
 @pytest.fixture
 def nodes(tmp_path):
+    # /health and /metrics read each package's process-global ledgers
+    # (breakers, device stages, membudget, capacity counters): another
+    # test in this process must not leave one package's set apart
+    _fresh_process_counters()
     made = {}
 
     def boot(name, side, **kw):
@@ -256,10 +274,10 @@ def test_requests_flush_files_and_restart_match(nodes):
     for port in (ta.port, ja.port):
         _call(port, "/api/v1/debug/faults", b'{"disarm": ["node.test"]}', "POST")
 
-    # the routes whose module is not ported answer 501 in the port
-    for path in ("/render?target=x", "/metrics/find?query=x"):
-        st, _, body = _call(ta.port, path)
-        assert st == 501 and b"is not ported" in body
+    # the Graphite routes answer as the JAX node's, byte for byte
+    for path in GRAPHITE_READS:
+        got = [_call(port, path)[::2] for port in (ta.port, ja.port)]
+        assert got[0] == got[1] and got[0][0] in (200, 400), (path, got)
     # the debug bundle: a zip of the reference's members
     members = []
     for port in (ta.port, ja.port):
@@ -364,6 +382,81 @@ def test_checkpointed_node_restores_open_windows(nodes):
     assert counters["torch"]["m3tpu_aggregator_checkpoint_restores"] == 1
     ft, fj = _rollup_files(roots["torch"]), _rollup_files(roots["jax"])
     assert ft == fj and any("fileset" in k for k in ft)
+
+
+def _carbon_send(port, k0, k1):
+    """Carbon plaintext: 12 graphite paths, scrapes k0..k1 every 10 s."""
+    rng = np.random.default_rng(k0)
+    lines = [f"m3.dc{i % 2}.host{i // 2}.cpu {float(v)!r} {(START + k * 10 * SEC) // SEC}\n"
+             for k in range(k0, k1) for i, v in enumerate(rng.normal(50, 10, 12))]
+    with socket.create_connection(("127.0.0.1", port)) as s:
+        s.sendall("".join(lines).encode())
+    return len(lines)
+
+
+# groupByNode takes the reference's short names ("sum"); graphite-web's
+# "sumSeries" spelling answers 400 in both packages
+GRAPHITE_TARGETS = ["m3.*.*.cpu", "sumSeries(m3.dc0.*.cpu)",
+                    'groupByNode(m3.*.*.cpu, 1, "sum")',
+                    'groupByNode(m3.*.*.cpu, 1, "sumSeries")',
+                    "movingAverage(m3.dc1.host1*.cpu, 3)"]
+
+
+def _graphite_reads(port):
+    out = [_call(port, "/render?target=" + urllib.parse.quote(t) + GRAPHITE_WINDOW)[::2]
+           for t in GRAPHITE_TARGETS]
+    out += [_call(port, f"/metrics/find?query={q}")[::2] for q in ("m3.*", "m3.dc0.*")]
+    return out
+
+
+def test_front_doors_node_files_match(nodes, tmp_path):
+    """``coordinator.carbon_listen_port``, ``query.listen_port`` and
+    ``query.remotes`` on both packages: carbon lines read back through
+    /render and /metrics/find byte-equal, federated queries equal, the
+    same mediator stats, and after both close every file sha256-equal."""
+    roots, answers = {}, {}
+    for side, mod in (("torch", tpr), ("jax", jpr)):
+        peer, proot = nodes("peer", side, extra="}\nquery: {listen_port: 0")
+        st, _, body = _call(peer.port, "/api/v1/json/write", _json_samples(0, 40), "POST")
+        assert st == 200
+        asm, root = nodes("fd", side, extra=(
+            ", carbon_listen_port: 0}\nquery: {listen_port: 0, "
+            f"remotes: ['127.0.0.1:{peer.query_port}']"))
+        roots[side] = (root, proot)
+        assert asm.query_port and asm.carbon_port and len(asm.remote_stores) == 1
+        _traffic(asm.port, 0, 40, mod)
+        sent = _carbon_send(asm.carbon_port, 0, 40)
+        deadline = time.monotonic() + 60
+        while True:
+            got = json.loads(_call(asm.port, "/render?target=m3.*.*.cpu"
+                                   + GRAPHITE_WINDOW.replace("30s", "10s"))[2])
+            if sum(v is not None for s in got for v, _ in s["datapoints"]) == sent:
+                break
+            assert time.monotonic() < deadline, "carbon lines not read back"
+            time.sleep(0.05)
+        reads = {"graphite": _graphite_reads(asm.port),
+                 "fed": [_call(asm.port, q)[::2] for q in QUERIES[:2]]}
+        now = START + BLOCK + 11 * 60 * SEC
+        stats = [asm.mediator.run_once(now), peer.mediator.run_once(now)]
+        for st_ in stats:
+            st_.pop("duration_s")
+        reads["graphite_flushed"] = _graphite_reads(asm.port)
+        reads["stats"] = stats
+        asm.close()
+        peer.close()
+        answers[side] = reads
+    t, j = answers["torch"], answers["jax"]
+    assert t["graphite"] == j["graphite"] and t["stats"] == j["stats"]
+    assert t["graphite_flushed"] == j["graphite_flushed"] == t["graphite"]
+    assert [st for st, _ in t["graphite"]] == [200, 200, 200, 400, 200, 200, 200]
+    assert len(json.loads(t["graphite"][0][1])) == 12
+    for (st_t, bt), (st_j, bj) in zip(t["fed"], j["fed"]):
+        assert st_t == st_j == 200
+        _same_answer(bt, bj)
+    assert t["stats"][0]["tick"]["default"]["warm_flushed"] > 0
+    for (rt, pt), (rj, pj) in zip([roots["torch"]], [roots["jax"]]):
+        assert _digests(rt) == _digests(rj) and _digests(pt) == _digests(pj)
+        assert any("fileset" in k for k in _digests(rt))
 
 
 def test_node_main_subprocess_boots_and_drains(tmp_path):
