@@ -368,7 +368,43 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and its ``GraphiteStorage.fetch`` share, each query's wall and its
    remote fetch's share.
 
-Order.  Phases 16, 18-19 and 22-23 run in lanes: spawned processes of
+24. the runtime instruments and the proto value codec, after phase 23
+   (b) in its lane: (a) ``tools/hops.run_pipeline`` on the card under
+   ``x/hopwatch`` (a cold pass counted, a steady pass timed and not
+   counted, a steady pass counted; three volumes sha256-equal) for the
+   pinned HOPS corpus (1,024 x 320; its volume the JAX digest) and at
+   config #3's width (10^6 series x 20 s: two drained windows), with
+   ``x/tracewatch``'s build budget installed; then one more steady pass
+   under ``x/hopwatch`` with the launches counted from 0: kernel #1's
+   grids in the encode hop equal ``encode_place.launches`` and no other
+   hop launches a hand kernel, kernel #1 launched again on each call's
+   inputs equals its plain version, no kernel is built; on the pinned
+   corpus that pass runs under torch.profiler, and the trace's HtoD and
+   DtoH memcpys equal the ledger's transfers in count and bytes, and
+   every kernel in the trace belongs to a counted dispatch (the aten op
+   that launched it, by the profiler's correlation) or is a hand kernel
+   as many times as the ledger's grids; any difference is printed by
+   seam; and a catalogue of every seam (each transfer, factory and
+   implicit sync once, each in a hop of its own) traced the same way;
+   (b) ``tracewatch.no_transfers()``: ``.cpu()``, ``.to("cpu")``,
+   ``.item()``, ``.tolist()``, ``copy_`` both ways, ``torch.tensor`` and
+   ``torch.as_tensor`` of a list, an ndarray's upload and the implicit
+   syncs (``nonzero``, a boolean-mask index, ``masked_select``,
+   ``unique``, ``repeat_interleave``) each raise ``TransferError`` on a
+   CUDA tensor, kernels #1 and #2 launched on resident tensors inside the
+   guard raise nothing and equal their plain versions, and
+   ``allow_transfers()`` escapes it; (c) phase 19's threaded ingest and
+   ticks at ``tests/test_torch_gpu.py``'s size (four clients, three
+   windows, a flush thread) with ``x/lockcheck`` armed in raise mode: no
+   inversion, and the rows equal a serial run's on the card and on the
+   CPU; (d) config #2's 100,000 series x 720 points through
+   ``encode_batch`` on the card with a schema annotation
+   (``pack_schema_annotation`` on fixed descriptor bytes, no protobuf) on
+   every series' first datapoint: kernel #1 equal to its plain version,
+   fallback under 5 %, and every 100th series through the scalar decoder
+   gives back the annotation bytes and every point.
+
+Order.  Phases 16, 18-19 and 22-24 run in lanes: spawned processes of
 their own, started with the script (phase 18's request builders start in
 its lane then), released after phase 11 and joined after phase 17.  The main
 process meanwhile runs phases 12-15, 20 and 17, in that order; phase 21
@@ -392,7 +428,9 @@ main paths: kernels #3 and #4 in (a)'s f64 step, #1 in (c)'s encode,
 ``cluster_check_launches`` (its volume check (d): kernel #2), and
 ``device_launches`` (phase 22's main path: #3 and #4 in the f64 ingest,
 #1 in (c)'s flush, #2 in (c)'s volume check), and ``graphite_launches``
-(phase 23's path: #1 in (a)'s flush, #2 in its volume check);
+(phase 23's path: #1 in (a)'s flush, #2 in its volume check), and
+``instrument_launches`` (phase 24's path: #1 in (a)'s encode hops and
+(d)'s encode; none of #2-#4: the packed layout and the scalar decoder);
 ``shared_card`` names the phases whose kernel times were taken while a
 lane ran beside them.
 The last three lines are a JSON line of kernel records, the card's name
@@ -4388,12 +4426,13 @@ def hops_on_card(dev, card: str) -> dict:
 
     with KernelCheck(mt, "place_words", encode_place.place_words_plain) as pcheck:
         doc = hops.run_pipeline(root=str(store_root("phase19-hops")), device=dev)
-    assert doc["volume_sha256"] == doc["cold_volume_sha256"] == HOPS_PINNED_SHA256, doc
+    assert (doc["volume_sha256"] == doc["cold_volume_sha256"] == doc["ledger_volume_sha256"]
+            == HOPS_PINNED_SHA256), doc
     log(f"phase19 (a) HOPS corpus {doc['config']['S']} x {doc['config']['T']}: volume sha256 "
-        f"== the pinned JAX digest (cold and steady); kernel #1 == plain in {pcheck.calls} calls")
+        f"== the pinned JAX digest (all three passes); kernel #1 == plain in {pcheck.calls} calls")
     for h, v in doc["hops"].items():
-        log(f"phase19 (a) [{card}] {h}: cold {v['cold_wall_s']:.3f} s, steady "
-            f"{v['steady_wall_s']:.3f} s, share {v['host_time_fraction']:.4f}")
+        log(f"phase19 (a) [{card}] {h}: steady {v['steady_wall_s']:.3f} s (uncounted pass), "
+            f"share {v['host_time_fraction']:.4f}")
     return {"hops": doc["hops"], "hops_pipeline": doc["pipeline"],
             "hops_place_calls": pcheck.calls, "hops_place_max_abs_err": pcheck.err}
 
@@ -6682,13 +6721,22 @@ def front_door_part(part, seed: int, dev) -> dict:
             "max_abs_err": out.pop("max_abs_err", {})}
 
 
-def federation_lane(seed: int) -> dict:
-    """Phase 23 (b) in a lane of its own: ``front_door_part(federation)``."""
+def federation_lane(seed: int, card: str) -> dict:
+    """Phase 23 (b) in a lane of its own (``front_door_part(federation)``),
+    then phase 24 (``instruments_phase``) with every kernel's launches
+    counted from 0 over its path."""
     import torch
 
     torch.set_num_threads(LANE_THREADS)
     lane_wait()
-    return front_door_part(federation, seed, torch.device("cuda"))
+    dev = torch.device("cuda")
+    fed = front_door_part(federation, seed, dev)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    inst = instruments_phase(seed, dev, card)
+    inst["parts"]["wall_s"] = time.perf_counter() - t0
+    log(f"phase24 done in {inst['parts']['wall_s']:.1f} s")
+    return {"federation": fed, "instruments": inst}
 
 
 def front_door_records(kernels: list, a: dict, b: dict, card: str) -> None:
@@ -6706,6 +6754,708 @@ def front_door_records(kernels: list, a: dict, b: dict, card: str) -> None:
     log(f"phase23 [{card}] launches on its path: {launches}")
     log(f"phase23 [{card}] query federation and the Graphite front door: "
         + json.dumps({"a": a["part"], "b": b["part"]}))
+
+
+# ---- phase 24: the runtime instruments and the proto value codec -----------
+
+HOPS_WIDE_SERIES = 1_000_000  # BASELINE config #3's width
+HOPS_WIDE_SECONDS = 10  # of the corpus's 320: one drained 10 s window (PERF.md §4)
+PROTO_SERIES, PROTO_POINTS = 100_000, 720  # config #2's width
+PROTO_CHECK_EVERY = 100  # every 100th series through the scalar decoder
+PROTO_MESSAGE = "m3test.VehicleUpdate"
+# a serialized FileDescriptorSet of one proto3 file (a position message
+# nested in a vehicle update), fixed here so that no protobuf package is
+# needed; tests/test_torch_proto.py rebuilds it with protobuf
+PROTO_FDS = base64.b64decode(
+    "Cs8BCg90ZWxlbWV0cnkucHJvdG8SBm0zdGVzdCIvCghQb3NpdGlvbhIQCghsYXRpdHVkZRgB"
+    "IAEoARIRCglsb25naXR1ZGUYAiABKAEiewoNVmVoaWNsZVVwZGF0ZRIUCgxmdWVsX3BlcmNl"
+    "bnQYASABKAESEAoIb2RvbWV0ZXIYAiABKAMSDgoGc3RhdHVzGAMgASgJEg4KBm1vdmluZxgE"
+    "IAEoCBIiCghwb3NpdGlvbhgFIAEoCzIQLm0zdGVzdC5Qb3NpdGlvbmIGcHJvdG8z")
+# the hand kernels' __global__ functions, by the wrappers' kernel names
+HAND_KERNELS = {"place_words_kernel": "place_words", "extract_fields_kernel": "extract_fields",
+                "count_kernel": "segment_ingest", "apply_unique": "segment_ingest",
+                "scan_tiles": "segment_ingest", "compact_collided": "segment_ingest",
+                "apply_collided": "segment_ingest", "segment_minmax_kernel": "segment_minmax"}
+
+
+def trace_of(fn) -> tuple:
+    """``fn()`` under torch.profiler (CPU and CUDA): (its result, the
+    trace's complete events, the seconds of the profiled run, the
+    trace's export and its parse)."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    trace = ROOT / "build" / f"ledger_trace.{os.getpid()}.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    prof.export_chrome_trace(str(trace))
+    t2 = time.perf_counter()
+    try:
+        with open(trace) as fh:
+            events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
+    finally:
+        trace.unlink()
+    return out, events, {"profiled": t1 - t0, "export": t2 - t1,
+                         "parse": time.perf_counter() - t2}
+
+
+def _ext_id(e):
+    a = e.get("args", {})
+    return a.get("External id", a.get("external id"))
+
+
+def trace_vs_ledger(events, stats: dict, seams: dict) -> dict:
+    """Hold a pass's ``x/hopwatch`` ledger against its profiler trace:
+    (1) the trace's HtoD and DtoH memcpys, in count and bytes, equal the
+    ledger's transfers; (2) every kernel in the trace belongs to a counted
+    dispatch — the outermost op of its launching op's stack that the
+    ledger counts, each counted op instance at most once per counted
+    dispatch of its name — or is a hand kernel, as many as the ledger's
+    grids.  Returns the figures and ``problems`` (empty when they agree),
+    each naming its seam."""
+    led: dict = {}
+    for rows in seams.values():
+        for key, (n, nb) in rows.items():
+            c = led.setdefault(key, [0, 0])
+            c[0] += n
+            c[1] += nb
+    counted = {k.split(":", 1)[1] for k in led if k.startswith("dispatch:aten")}
+    transfer_ops = {k.split(":", 1)[1] for k in led if k[:4] in ("h2d:", "d2h:")}
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    parent: dict = {}
+    by_tid: dict = {}
+    for i, e in enumerate(ops):
+        by_tid.setdefault((e.get("pid"), e.get("tid")), []).append(i)
+    for idx in by_tid.values():
+        stack: list = []
+        for i in sorted(idx, key=lambda j: (float(ops[j]["ts"]), -float(ops[j]["dur"]))):
+            t = float(ops[i]["ts"])
+            while stack and float(ops[stack[-1]]["ts"]) + float(ops[stack[-1]]["dur"]) <= t:
+                stack.pop()
+            parent[i] = stack[-1] if stack else None
+            stack.append(i)
+    by_ext = {_ext_id(e): i for i, e in enumerate(ops) if _ext_id(e) is not None}
+    runtime_ext = {e["args"].get("correlation"): _ext_id(e) for e in events
+                   if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+
+    def chain(e) -> list:
+        ext = _ext_id(e)
+        if ext is None or ext not in by_ext:
+            ext = runtime_ext.get(e.get("args", {}).get("correlation"))
+        i = by_ext.get(ext)
+        out = []
+        while i is not None:
+            out.append(i)
+            i = parent.get(i)
+        return out[::-1]  # outermost first
+
+    problems = []
+    # (1) memcpys against the ledger's transfers
+    trace_x = {"h2d": [0, 0], "d2h": [0, 0]}
+    trace_by_op: dict = {}
+    for e in events:
+        if e.get("cat") != "gpu_memcpy":
+            continue
+        kind = "h2d" if "HtoD" in e["name"] else "d2h" if "DtoH" in e["name"] else None
+        if kind is None:
+            continue
+        nb = int(e.get("args", {}).get("bytes", 0))
+        trace_x[kind][0] += 1
+        trace_x[kind][1] += nb
+        names = [ops[i]["name"] for i in chain(e)]
+        op = next((n for n in names if n in transfer_ops), names[0] if names else "(no op)")
+        row = trace_by_op.setdefault(f"{kind}:{op}", [0, 0])
+        row[0] += 1
+        row[1] += nb
+    tot = {"h2d": [sum(s["h2d_count"] for s in stats.values()),
+                   sum(s["h2d_bytes"] for s in stats.values())],
+           "d2h": [sum(s["d2h_count"] for s in stats.values()),
+                   sum(s["d2h_bytes"] for s in stats.values())]}
+    for kind in ("h2d", "d2h"):
+        if trace_x[kind] != tot[kind]:
+            problems.append(
+                f"{kind}: trace {trace_x[kind]} (count, bytes) != ledger {tot[kind]}; by seam, "
+                f"trace {json.dumps({k: v for k, v in trace_by_op.items() if k.startswith(kind)})}"
+                f" ledger {json.dumps({k: v for k, v in led.items() if k.startswith(kind)})}")
+    # (2) kernels against the counted dispatches
+    instances: dict = {}
+    hand: dict = {}
+    n_kernels = 0
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        n_kernels += 1
+        names = chain(e)
+        owner = next((i for i in names if ops[i]["name"] in counted), None)
+        if owner is not None:
+            instances.setdefault(ops[owner]["name"], set()).add(owner)
+            continue
+        fn = next((k for g, k in HAND_KERNELS.items() if g in e["name"]), None)
+        if fn is None or names:
+            problems.append(f"kernel {e['name'][:120]!r} under "
+                            f"{[ops[i]['name'] for i in names]} belongs to no counted dispatch")
+            continue
+        hand[fn] = hand.get(fn, 0) + 1
+    for name, inst in sorted(instances.items()):
+        if len(inst) > led[f"dispatch:{name}"][0]:
+            problems.append(f"{name}: {len(inst)} launching instances in the trace, "
+                            f"{led[f'dispatch:{name}'][0]} counted")
+    for fn, n in sorted(hand.items()):
+        if n != led.get(f"dispatch:kernel:{fn}", [0])[0]:
+            problems.append(f"hand kernel {fn}: {n} in the trace, "
+                            f"{led.get(f'dispatch:kernel:{fn}', [0])[0]} counted")
+    return {"trace_memcpy": trace_x, "ledger_transfers": tot, "trace_kernels": n_kernels,
+            "kernel_ops": {k: len(v) for k, v in sorted(instances.items())},
+            "hand_kernels": hand, "problems": problems}
+
+
+class InputRecord:
+    """Within ``with``, every call of ``owner.attr`` (a kernel wrapper as
+    its caller looks it up) runs as before, and its inputs are kept with
+    whether ``x/hopwatch`` was installed and the launches it made;
+    nothing else runs, so a pass under ``x/hopwatch`` counts only its own
+    ops.  ``check`` then launches the kernel again on each kept call's
+    inputs and holds it against ``plain`` on them (the caller writes into
+    the output it was handed, so the output is not kept)."""
+
+    def __init__(self, owner, attr: str, plain):
+        self.owner, self.attr, self.plain = owner, attr, plain
+        self.calls: list = []  # (inputs, counted, launches)
+
+    def __enter__(self):
+        from m3_tpu_torch.x import hopwatch
+
+        fn = self.fn = getattr(self.owner, self.attr)
+
+        def kept(*a):
+            n = sum(read_launches().values())
+            out = fn(*a)
+            self.calls.append((a, hopwatch.installed(), sum(read_launches().values()) - n))
+            return out
+
+        setattr(self.owner, self.attr, kept)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attr, self.fn)
+        return False
+
+    def launches(self, counted: bool) -> int:
+        return sum(n for _, c, n in self.calls if c == counted)
+
+    def check(self) -> int:
+        """Largest bit difference over the kept calls; raises unless 0."""
+        import torch
+
+        err = 0
+        for a, _, _ in self.calls:
+            out, want = self.fn(*a), self.plain(*a)
+            err = max(err, int((out ^ want).abs().max()) if out.numel() else 0)
+            assert torch.equal(out, want), f"{self.attr} kernel != plain on the path's inputs"
+        self.calls.clear()
+        return err
+
+
+def kernel_grids(seams: dict) -> dict:
+    """hop -> hand kernel -> grids, from a ledger by seam."""
+    return {h: {k.split(":", 2)[2]: v[0] for k, v in rows.items()
+                if k.startswith("dispatch:kernel:")} for h, rows in seams.items()}
+
+
+def hops_ledger(S: int, T: int, dev, card: str, tag: str, profile: bool) -> dict:
+    """(a) for one corpus: ``tools/hops.run_pipeline`` on the card (cold
+    ledger, uncounted walls, steady ledger; three volumes, sha256-equal,
+    the pinned corpus's equal to the JAX digest; no build) with the
+    launches counted from 0: kernel #1's grids in the encode hops of the
+    two ledgers equal the launches its calls made while ``x/hopwatch``
+    was installed, all its calls together ``encode_place.launches``, no
+    other hop launches a hand kernel, and kernel #1 launched again on
+    each call's inputs equals its plain version.  Where ``profile``, one
+    more steady pass under ``x/hopwatch`` runs under torch.profiler,
+    launches counted from 0 again: the same checks, and the ledger equals
+    the trace (``trace_vs_ledger``)."""
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.parallel import encode_place
+    from m3_tpu_torch.tools import hops
+    from m3_tpu_torch.x import tracewatch
+
+    def held(rec, ledgers: list, launched: dict) -> int:
+        grids = [kernel_grids(sm) for sm in ledgers]
+        enc = sum(g.get("encode", {}).get("place_words", 0) for g in grids)
+        assert enc == rec.launches(True) > 0, (enc, rec.calls)
+        assert rec.launches(True) + rec.launches(False) == launched["place_words"] \
+            == sum(launched.values()), launched
+        others = [(h, k) for g in grids for h, ks in g.items() for k in ks
+                  if (h, k) != ("encode", "place_words")]
+        assert not others, others
+        return enc
+
+    snap = tracewatch.snapshot()
+    zero_launches()
+    t0 = time.perf_counter()
+    with InputRecord(mt, "place_words", encode_place.place_words_plain) as rec:
+        doc = hops.run_pipeline(S, T, root=str(store_root(f"phase24-{tag}")), device=dev)
+    run_s = time.perf_counter() - t0
+    launched = read_launches()
+    counted = held(rec, [doc["seams"]["cold"], doc["seams"]["steady"]], launched)
+    err = rec.check()
+    assert tracewatch.retraces_since(snap) == 0, tracewatch.compile_signatures()
+    digests = {doc["volume_sha256"], doc["cold_volume_sha256"], doc["ledger_volume_sha256"]}
+    assert len(digests) == 1, doc
+    if (S, T) == (hops.S_DEFAULT, hops.T_DEFAULT):
+        assert doc["volume_sha256"] == HOPS_PINNED_SHA256, doc["volume_sha256"]
+    assert doc["pipeline"]["compiles_cold"] == doc["pipeline"]["compiles_steady"] == 0
+    out = {"S": S, "T": T, "run_s": run_s, "hops": doc["hops"], "pipeline": doc["pipeline"],
+           "seams": doc["seams"], "launches": launched, "place_max_abs_err": err,
+           "kernel_grids": kernel_grids(doc["seams"]["steady"])}
+    for h, v in doc["hops"].items():
+        log(f"phase24 (a) [{card}] {tag} {h}: steady wall {v['steady_wall_s']:.3f} s "
+            f"(uncounted pass), share {v['host_time_fraction']:.4f}; steady ledger "
+            f"{json.dumps(v['steady'])}; cold ledger {json.dumps(v['cold'])}")
+    log(f"phase24 (a) [{card}] {tag} steady ledger by seam: {json.dumps(doc['seams']['steady'])}")
+    log(f"phase24 (a) [{card}] {tag} pipeline: {json.dumps(doc['pipeline'])}; kernel #1 "
+        f"{launched['place_words']} launches ({counted} counted), all in the encode "
+        f"hops, == plain")
+    if not profile:
+        return out
+    frames, policy, opts = hops.pipeline_inputs(S, T)
+    root = store_root(f"phase24-{tag}-traced")
+    snap = tracewatch.snapshot()
+    zero_launches()
+    t0 = time.perf_counter()
+    with InputRecord(mt, "place_words", encode_place.place_words_plain) as rec:
+        (stats, seams, _), events, split = trace_of(
+            lambda: hops.ledger_pass(frames, policy, opts, root, dev))
+    traced = read_launches()
+    held(rec, [seams], traced)
+    out["place_max_abs_err"] = max(err, rec.check())
+    assert tracewatch.retraces_since(snap) == 0, tracewatch.compile_signatures()
+    assert hops.volume_digest(root) == doc["volume_sha256"]
+    t1 = time.perf_counter()
+    got = trace_vs_ledger(events, stats, seams)
+    del events
+    out.update(traced_pass_s=t1 - t0, trace_split_s=split, trace_check_s=time.perf_counter() - t1,
+               traced_ledger=stats, traced_launches=traced, trace_check=got)
+    for k, v in traced.items():
+        out["launches"][k] += v
+    assert not got["problems"], "ledger != trace:\n" + "\n".join(got["problems"])
+    log(f"phase24 (a) {tag}: the ledger == the trace: memcpys {got['trace_memcpy']}, "
+        f"{got['trace_kernels']} kernels, each under a counted dispatch or a hand kernel "
+        f"({got['hand_kernels']})")
+    return out
+
+
+def seam_catalogue(dev):
+    """Every seam of ``x/devseams`` once on the card, each in a hop of its
+    own: (name, callable) pairs.  Tensors are made here, outside any
+    counted region."""
+    import torch
+
+    x = torch.arange(8, dtype=torch.int64, device=dev)
+    y = torch.arange(8, 0, -1, dtype=torch.int64, device=dev)
+    xf = torch.arange(8, dtype=torch.float32, device=dev)
+    r = torch.tensor([1, 2, 3], device=dev)
+    host = torch.zeros(8, dtype=torch.int64)
+    arr = np.arange(8, dtype=np.int64)
+    arr32 = np.arange(8, dtype=np.float32)
+    mask = x > 3
+    return [
+        (".cpu()", lambda: x.cpu()),
+        (".to(cpu, float64)", lambda: xf.to("cpu", torch.float64)),
+        (".to(card, float32) of float64", lambda: torch.arange(8.0, dtype=torch.float64).to(
+            dev, torch.float32)),
+        (".item()", lambda: x[3].item()),
+        ("bool()", lambda: bool(x[3])),
+        (".tolist()", lambda: x.tolist()),
+        ("copy_ to the host", lambda: torch.zeros(8, dtype=torch.int64).copy_(x)),
+        ("copy_ to the card", lambda: x.clone().copy_(host)),
+        ("copy_ to the card, broadcast", lambda: torch.zeros(
+            (4, 8), dtype=torch.int64, device=dev).copy_(host)),
+        ("copy_ to the host, strided", lambda: torch.zeros(4, dtype=torch.int64).copy_(x[::2])),
+        ("torch.tensor(list)", lambda: torch.tensor([1, 2, 3], device=dev)),
+        ("torch.tensor(scalar)", lambda: torch.tensor(3.0, device=dev)),
+        ("torch.as_tensor(list)", lambda: torch.as_tensor([1, 2, 3], device=dev)),
+        ("torch.as_tensor(ndarray)", lambda: torch.as_tensor(arr, device=dev)),
+        ("torch.as_tensor(ndarray, float64)", lambda: torch.as_tensor(
+            arr32, dtype=torch.float64, device=dev)),
+        ("ndarray .to", lambda: torch.from_numpy(arr).to(dev)),
+        ("ndarray .to, non_blocking", lambda: torch.from_numpy(arr).to(dev, non_blocking=True)),
+        ("nonzero", lambda: torch.nonzero(mask)),
+        ("boolean-mask index", lambda: x[mask]),
+        ("boolean-mask store of a scalar", lambda: x.clone().__setitem__(mask, 0)),
+        ("boolean-mask store of a tensor", lambda: x.clone().__setitem__(
+            mask, torch.arange(4, device=dev))),
+        ("masked_select", lambda: torch.masked_select(x, mask)),
+        ("unique", lambda: torch.unique(x)),
+        ("unique, inverse and counts", lambda: torch.unique(
+            x, return_inverse=True, return_counts=True)),
+        ("unique over a dim", lambda: torch.unique(x.view(2, 4), dim=0)),
+        ("unique_consecutive", lambda: torch.unique_consecutive(x, return_counts=True)),
+        ("repeat_interleave", lambda: torch.repeat_interleave(r)),
+        ("repeat_interleave of a tensor", lambda: torch.repeat_interleave(x[:3], r)),
+        ("repeat_interleave, output_size", lambda: torch.repeat_interleave(r, output_size=6)),
+        ("equal", lambda: torch.equal(x, y)),
+        ("equal to itself", lambda: torch.equal(x, x)),
+        ("allclose", lambda: torch.allclose(xf, xf)),
+        ("bincount", lambda: torch.bincount(x)),
+        ("histc", lambda: torch.histc(xf)),
+        ("histc over a range", lambda: torch.histc(xf, bins=4, min=0, max=8)),
+        ("argwhere", lambda: torch.argwhere(mask)),
+        ("where(condition)", lambda: torch.where(mask)),
+        ("any, as a bool", lambda: bool(mask.any())),
+        ("arange to a card scalar", lambda: torch.arange(x[3])),
+    ]
+
+
+def seams_traced(dev, tries: int = 3) -> dict:
+    """(a) the seam catalogue under ``x/hopwatch`` and torch.profiler: the
+    trace's HtoD and DtoH memcpys equal the ledger's transfers in count
+    and bytes, and every kernel belongs to a counted dispatch
+    (``trace_vs_ledger``): the implicit syncs' counts and bytes in
+    ``x/devseams`` are the card's.  The profiler has been seen to drop a
+    record of a lone small copy, so a catalogue whose trace disagrees is
+    traced again, up to ``tries`` times; one agreeing trace passes."""
+    from m3_tpu_torch.x import hopwatch
+
+    seams = seam_catalogue(dev)
+    for _, fn in seams:  # warm: each op's first call out of the trace
+        fn()
+
+    def run():
+        hopwatch.install()
+        hopwatch.reset()
+        try:
+            for name, fn in seams:
+                with hopwatch.hop(name):
+                    fn()
+            return hopwatch.stats(), hopwatch.seams()
+        finally:
+            hopwatch.uninstall()
+
+    for attempt in range(tries):
+        (stats, by_seam), events, _ = trace_of(run)
+        got = trace_vs_ledger(events, stats, by_seam)
+        if not got["problems"]:
+            break
+        log(f"phase24 (a) seam catalogue, trace {attempt + 1} of {tries}: "
+            + "\n".join(got["problems"]))
+    assert not got["problems"], "ledger != trace on the seam catalogue"
+    log(f"phase24 (a) seam catalogue ({len(seams)} seams): the ledger == the trace "
+        f"(trace {attempt + 1}): memcpys {got['trace_memcpy']}, {got['trace_kernels']} kernels")
+    return {"seams": len(seams), "traces": attempt + 1, "memcpy": got["trace_memcpy"],
+            "kernels": got["trace_kernels"],
+            "by_hop": {h: {k: v for k, v in st.items() if k in (
+                "h2d_count", "h2d_bytes", "d2h_count", "d2h_bytes")} for h, st in stats.items()}}
+
+
+def guard_on_card(dev) -> dict:
+    """(b) ``tracewatch.no_transfers()`` on the card: every seam raises
+    ``TransferError`` naming the tensor, kernels #1 and #2 launched on
+    resident tensors inside the guard raise nothing and equal their
+    plain versions, and ``allow_transfers()`` escapes it."""
+    import torch
+
+    from m3_tpu_torch.parallel import decode_gather, encode_place
+    from m3_tpu_torch.x import tracewatch
+
+    x = torch.arange(8, dtype=torch.int64, device=dev)
+    host = torch.arange(8, dtype=torch.int64)
+    arr = np.arange(8, dtype=np.int64)
+    seams = {
+        ".cpu()": lambda: x.cpu(),
+        '.to("cpu")': lambda: x.to("cpu"),
+        ".item()": lambda: x[3].item(),
+        ".tolist()": lambda: x.tolist(),
+        "copy_ to the host": lambda: torch.empty(8, dtype=torch.int64).copy_(x),
+        "copy_ to the card": lambda: x.copy_(host),
+        "torch.tensor(list)": lambda: torch.tensor([1, 2, 3, 4, 5, 6, 7, 8], device=dev),
+        "torch.as_tensor(list)": lambda: torch.as_tensor([1, 2, 3, 4, 5, 6, 7, 8], device=dev),
+        "ndarray upload": lambda: torch.from_numpy(arr).to(dev),
+        "torch.as_tensor(ndarray)": lambda: torch.as_tensor(arr, device=dev),
+        "nonzero": lambda: torch.nonzero(x),
+        "boolean-mask index": lambda: x[x > 3],
+        "masked_select": lambda: torch.masked_select(x, x > 3),
+        "unique": lambda: torch.unique(x),
+        "repeat_interleave": lambda: torch.repeat_interleave(x[:3]),
+    }
+    raised = {}
+    with tracewatch.no_transfers():
+        for name, fn in seams.items():
+            try:
+                fn()
+            except tracewatch.TransferError as e:
+                raised[name] = str(e)
+                continue
+            raise AssertionError(f"{name} crossed the guard")
+        with tracewatch.allow_transfers():
+            assert x.cpu().tolist() == list(range(8))
+    for name in (".cpu()", '.to("cpu")', ".tolist()", "copy_ to the host",
+                 "torch.as_tensor(ndarray)", "ndarray upload"):
+        assert "int64[8]" in raised[name], (name, raised[name])
+    # resident inputs, made outside the guard
+    g = torch.Generator(device=dev).manual_seed(24)
+    S, F, W = 4096, 64, 24
+    f = torch.arange(F, device=dev)
+    keys = ((f // 64) * 6 + (torch.arange(S, device=dev)[:, None] % 5) - 2).to(torch.int32)
+    frags = torch.where(torch.rand((S, F), device=dev, generator=g) < 0.5,
+                        torch.ones((), dtype=torch.int64, device=dev) << (f % 64), 0)
+    words = torch.randint(-(1 << 62), 1 << 62, (W, S), device=dev, generator=g)
+    offs = torch.randint(0, W * 64, (8, S), device=dev, generator=g, dtype=torch.int32)
+    widths = torch.randint(0, 65, (8, S), device=dev, generator=g, dtype=torch.int32)
+    torch.cuda.synchronize()
+    n1, n2 = encode_place.launches, decode_gather.launches
+    with tracewatch.no_transfers():
+        placed = encode_place.place_words(frags, keys, W)
+        fields = decode_gather.extract_fields64_t(words, offs, widths)
+    assert (encode_place.launches - n1, decode_gather.launches - n2) == (1, 1)
+    a = encode_place.place_words_plain(frags, keys, W)
+    b = decode_gather.extract_fields64_t_plain(words, offs, widths)
+    err = {"place_words": int((placed ^ a).abs().max()),
+           "extract_fields64_t": int((fields ^ b).abs().max())}
+    assert torch.equal(placed, a) and torch.equal(fields, b), err
+    return {"seams_raised": sorted(raised), "messages": raised, "max_abs_err": err}
+
+
+def lockcheck_on_card(dev) -> dict:
+    """(c) four clients stream three windows into an ``IngestServer`` in
+    front of the aggregator on the card while a ``FlushManager`` ticks
+    each window under the sink's lock (``tests/test_torch_gpu.py::
+    test_threaded_ingest_and_ticks_on_card_equal_serial``'s run, at its
+    size), with ``x/lockcheck`` armed in raise mode over every lock they
+    make: no inversion, and the flushed rows equal a serial run's on the
+    card and on the CPU."""
+    import threading
+
+    from m3_tpu_torch import instrument
+    from m3_tpu_torch.aggregator.engine import Aggregator, AggregatorOptions
+    from m3_tpu_torch.aggregator.flush_mgr import FlushManager
+    from m3_tpu_torch.client.aggregator_client import AggregatorClient
+    from m3_tpu_torch.cluster.kv import KVStore
+    from m3_tpu_torch.cluster.placement import Instance, initial_placement
+    from m3_tpu_torch.metrics.policy import StoragePolicy
+    from m3_tpu_torch.metrics.types import MetricType
+    from m3_tpu_torch.server.ingest_tcp import aggregator_sink, serve_ingest_background
+    from m3_tpu_torch.x import lockcheck
+
+    W = 10 * SEC
+    t0 = 1_600_000_000 * SEC // W * W
+    n_clients, n_windows, per = 4, 3, 400
+
+    def frames(c, w):
+        rng = np.random.default_rng(100 * c + w)
+        ids = [b"cc%d.s%d" % (c, i) for i in range(per)]
+        return [(np.full(per, 1 + (c % 2) * 2, np.uint8), ids,
+                 np.round(rng.normal(10, 3, per), 2),
+                 np.full(per, t0 + 1 + k + w * W, np.int64)) for k in range(2)]
+
+    def node(d):
+        agg = Aggregator(num_shards=4, opts=AggregatorOptions(
+            capacity=1 << 12, num_windows=4, timer_sample_capacity=1 << 10,
+            storage_policies=(StoragePolicy.parse("10s:2d"),)), device=d)
+        rows = []
+
+        def on_flush(ml, f):
+            m = ml.maps[f.metric_type]
+            rows.extend((m.id_of(s), f.timestamp_nanos, int(a),
+                         np.float64(v).view(np.int64).item()) for s, a, v in
+                        zip(f.slots.tolist(), f.types.tolist(), f.values.tolist()))
+
+        return agg, FlushManager(agg, KVStore(), "i0", flush_handler=on_flush), rows
+
+    lockcheck.reset()
+    lockcheck.install(raise_on_cycle=True)
+    wall = time.perf_counter()
+    try:
+        agg, fm, rows_conc = node(dev)
+        lock = threading.Lock()
+        reg = instrument.new_registry()
+        srv = serve_ingest_background(aggregator_sink(agg, lock), instrument=reg.scope(""))
+        placement = initial_placement([Instance("i0")], 4, 1)
+        done = [0] * n_windows
+        cv = threading.Condition()
+        errors = []
+
+        def run_client(c):
+            try:
+                cl = AggregatorClient(placement, lambda _: ("127.0.0.1", srv.port))
+                for w in range(n_windows):
+                    for f in frames(c, w):
+                        cl.write_batch(*f)
+                        assert cl.flush() == per
+                    with cv:
+                        done[w] += 1
+                        cv.notify_all()
+                cl.close()
+            except BaseException as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+
+        def ticker():
+            try:
+                for w in range(n_windows):
+                    with cv:
+                        assert cv.wait_for(lambda: done[w] == n_clients, timeout=300)
+                    with lock:
+                        assert fm.tick(t0 + (w + 1) * W) == "leader"
+            except BaseException as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=run_client, args=(c,)) for c in range(n_clients)]
+        threads.append(threading.Thread(target=ticker))
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            assert not any(t.is_alive() for t in threads) and not errors, errors
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        found = lockcheck.findings()
+        wall = time.perf_counter() - wall
+    finally:
+        lockcheck.uninstall()
+        lockcheck.reset()
+    assert not found, "\n".join(map(str, found))
+    key = lambda r: (r[1], r)  # noqa: E731 — window, then the row
+    for d in (dev, "cpu"):
+        ser, sfm, rows_ser = node(d)
+        for w in range(n_windows):
+            for c in range(n_clients):
+                for mts, ids, vals, ts in frames(c, w):
+                    ser.add_untimed_batch(MetricType(int(mts[0])), ids, vals, ts)
+            assert sfm.tick(t0 + (w + 1) * W) == "leader"
+        assert sorted(rows_conc, key=key) == sorted(rows_ser, key=key), d
+    assert len(rows_conc) == n_windows * n_clients * per
+    return {"rows": len(rows_conc), "inversions": 0, "armed_wall_s": wall}
+
+
+def proto_on_card(seed: int, dev) -> dict:
+    """(d) config #2's 100,000 series x 720 points (phase 3's mix) through
+    the batched encoder on the card with a schema annotation
+    (``pack_schema_annotation`` on ``PROTO_FDS``; no protobuf import) on
+    every series' first datapoint: kernel #1's outputs equal its plain
+    version's, the fallback share stays under 5 %, and every 100th
+    encoded series, through the scalar decoder, gives back the
+    annotation bytes and every point."""
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.encoding.m3tsz import decode_series
+    from m3_tpu_torch.encoding.proto_schema import (
+        pack_schema_annotation, unpack_schema_annotation,
+    )
+    from m3_tpu_torch.parallel import encode_place
+
+    from m3_tpu_torch.x import devseams
+
+    assert not devseams.watching()  # nothing counts or guards this encode
+    S, T = PROTO_SERIES, PROTO_POINTS
+    ann = pack_schema_annotation(PROTO_FDS, PROTO_MESSAGE)
+    assert unpack_schema_annotation(ann) == (PROTO_FDS, PROTO_MESSAGE)
+    ts, vals, starts = make_batch(seed + 24, S, T)
+    W = max(16, T * 40 // 64 + 8) + (len(ann) + 16) // 8  # room for the prefix
+    split: dict = {}
+    t0 = time.perf_counter()
+    with KernelCheck(mt, "place_words", encode_place.place_words_plain) as pcheck:
+        streams, fb = mt.encode_batch(ts, vals, starts, out_words=W, device=dev,
+                                      annotations=[ann] * S, timings=split)
+    enc_s = time.perf_counter() - t0
+    calls, err = pcheck.calls, pcheck.err
+    share = float(fb.mean())
+    assert calls > 0 and share < 0.05, (calls, share)
+    t0 = time.perf_counter()
+    checked = 0
+    for i in range(0, S, PROTO_CHECK_EVERY):
+        if fb[i]:
+            continue
+        pts = decode_series(streams[i])
+        assert pts[0].annotation == ann, i
+        assert [p.timestamp for p in pts] == ts[i].tolist(), i
+        got = np.array([p.value for p in pts])
+        assert np.array_equal(got.view(np.uint64), vals[i].view(np.uint64)), i
+        checked += 1
+    return {"series": S, "points": T, "annotation_bytes": len(ann), "out_words": W,
+            "encode_s": enc_s, "encode_split_s": split, "fallback_share": share,
+            "place_calls": calls,
+            "decoded_series": checked, "decode_s": time.perf_counter() - t0,
+            "max_abs_err": {"place_words": err}}
+
+
+def instruments_phase(seed: int, dev, card: str) -> dict:
+    """Phase 24: (a) ``x/hopwatch`` over the HOPS pipeline at the pinned
+    corpus (held against torch.profiler) and at config #3's width, with
+    ``x/tracewatch``'s build half installed; (b) the transfer guard;
+    (c) ``x/lockcheck`` over threaded ingest and ticks; (d) the proto
+    schema annotation through the batched encoder.  Kernel launches are
+    counted from 0 over (a)'s pipelines and (d), the phase's main path;
+    (a)'s checked passes and (b) count their own."""
+    import torch
+
+    from m3_tpu_torch.tools import hops
+    from m3_tpu_torch.x import tracewatch
+
+    out = {}
+    tracewatch.reset()
+    tracewatch.install(raise_on_violation=True)
+    try:
+        launches = dict.fromkeys(KERNEL_NAMES, 0)
+
+        def add(got):
+            for k, v in got.items():
+                launches[k] += v
+
+        t0 = time.perf_counter()
+        out["a_seams"] = seams_traced(dev)
+        out["a_pinned"] = hops_ledger(hops.S_DEFAULT, hops.T_DEFAULT, dev, card, "pinned",
+                                      profile=True)
+        add(out["a_pinned"]["launches"])
+        out["a_wide"] = hops_ledger(HOPS_WIDE_SERIES, HOPS_WIDE_SECONDS, dev, card, "wide",
+                                    profile=False)
+        add(out["a_wide"]["launches"])
+        out["a_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["b"] = guard_on_card(dev)
+        out["c"] = lockcheck_on_card(dev)
+        out["bc_s"] = time.perf_counter() - t0
+        zero_launches()
+        t0 = time.perf_counter()
+        out["d"] = proto_on_card(seed, dev)
+        out["d_s"] = time.perf_counter() - t0
+        add(read_launches())
+        out["builds"] = tracewatch.total_compiles()
+        assert not tracewatch.findings(), tracewatch.findings()
+    finally:
+        tracewatch.uninstall()
+    err = {"place_words": max(out["a_pinned"]["place_max_abs_err"],
+                              out["a_wide"]["place_max_abs_err"],
+                              out["d"]["max_abs_err"]["place_words"],
+                              out["b"]["max_abs_err"]["place_words"]),
+           "extract_fields64_t": out["b"]["max_abs_err"]["extract_fields64_t"]}
+    return {"parts": out, "launches": launches, "max_abs_err": err}
+
+
+def instrument_records(kernels: list, got: dict, card: str) -> None:
+    """Phase 24's result into the kernel records: ``instrument_launches``
+    (its path's: kernel #1 in (a)'s encode hops and (d)'s encode, above 0;
+    #2, #3 and #4 none — the packed layout) and its largest difference
+    from the plain versions ((b)'s guarded launches of #1 and #2
+    included)."""
+    for k in kernels:
+        name = k["name"]
+        k["instrument_launches"] = got["launches"][name]
+        k["max_abs_err"] = max(k["max_abs_err"], got["max_abs_err"].get(name, 0))
+    assert got["launches"]["place_words"] > 0, got["launches"]
+    log(f"phase24 [{card}] launches on its path: {got['launches']}")
+    parts = dict(got["parts"])
+    for key in ("a_pinned", "a_wide"):
+        parts[key] = {k: v for k, v in parts[key].items() if k != "seams"}
+    log(f"phase24 [{card}] the runtime instruments and the proto codec: " + json.dumps(parts))
 
 
 # ---- lanes: phases in processes of their own, beside the main one ----
@@ -6851,7 +7601,7 @@ def main() -> int:
 
     card = card_line()
     t_start = time.perf_counter()
-    # phases 16, 18-19 and 22-23 run in lanes, processes of their own started
+    # phases 16, 18-19 and 22-24 run in lanes, processes of their own started
     # now and released after phase 11, beside phases 12-15, 20 and 17 in
     # this one (PERF.md §4)
     lanes = []
@@ -6860,7 +7610,7 @@ def main() -> int:
         lanes.append(Lane("phases18-19", node_tier_lane, args.seed, card))
         lanes.append(Lane("phases22-23a", device_control_lane, args.seed,
                           env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}))
-        lanes.append(Lane("phase23b", federation_lane, args.seed))
+        lanes.append(Lane("phases23b-24", federation_lane, args.seed, card))
         return run(args, lanes, card, t_start)
     finally:
         for lane in lanes:
@@ -6868,7 +7618,7 @@ def main() -> int:
 
 
 def run(args, lanes: list, card: str, t_start: float) -> int:
-    """Phases 1-23 (see the module docstring); ``lanes`` wait for their
+    """Phases 1-24 (see the module docstring); ``lanes`` wait for their
     release after phase 11."""
     import torch
 
@@ -7130,7 +7880,7 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
     del packed_t
     torch.cuda.empty_cache()
 
-    # ---- the lanes start: phases 16, 18-19 and 22-23 beside 12-15, 20, 17 ----
+    # ---- the lanes start: phases 16, 18-19 and 22-24 beside 12-15, 20, 17 ----
     for lane in lanes:
         lane.release()
     spans = {}  # phase -> (process, wall start, wall end)
@@ -7193,13 +7943,15 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
     spans["phase17"] = ("main", w0, time.time())
     torch.cuda.empty_cache()
 
-    # ---- the lanes end: phase 16, phases 18-19, phases 22-23 ----
+    # ---- the lanes end: phase 16, phases 18-19, phases 22-24 ----
     ds_lane, node_lane, ctl_lane, fed_lane = lanes
     downsample_records(kernels, ds_lane.result(), fwd, card)
     merge_records(kernels, node_lane.result()["records"])
     ctl = ctl_lane.result()
     device_control_records(kernels, ctl, card)
-    front_door_records(kernels, ctl["front_door"], fed_lane.result(), card)
+    fed = fed_lane.result()
+    front_door_records(kernels, ctl["front_door"], fed["federation"], card)
+    instrument_records(kernels, fed["instruments"], card)
     for lane in lanes:
         spans[lane.name] = (lane.name, *lane.span)
     shared = shared_phases(spans)

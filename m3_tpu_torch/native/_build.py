@@ -19,6 +19,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from m3_tpu_torch.x import devseams
+
 SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "m3_tpu_torch"
 CXX = "g++"
@@ -34,11 +36,14 @@ def load_native(src_name: str, extra_flags: tuple = ()):
     with _lock:
         if src_name in _cache:
             return _cache[src_name]
-        _cache[src_name] = None
         src = SRC_DIR / src_name
+        code = src.read_bytes()
         flags = ("-O2", *extra_flags, "-shared", "-fPIC")
-        h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+        h = hashlib.sha256(code + " ".join(flags).encode())
         so = BUILD_DIR / f"{Path(src_name).stem}-{h.hexdigest()[:16]}.so"
+        if not so.exists():  # announced before the cache entry: a hook may refuse
+            devseams.building(src_name, code, flags)
+        _cache[src_name] = None
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             # a unique temp name renamed into place: processes sharing the

@@ -18,6 +18,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from m3_tpu_torch.x import devseams
+
 SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "m3_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -46,13 +48,15 @@ def _paths(name: str) -> tuple[Path, Path, Path]:
 
 def build(names) -> None:
     """Compile every named source whose library is missing, one ``nvcc``
-    per source, all started together.  Raises with the compiler's
-    output if any build fails."""
+    per source, all started together (each build is announced to
+    ``x/devseams`` first).  Raises with the compiler's output if any
+    build fails."""
+    todo = [(name, *_paths(name)) for name in names]
+    todo = [t for t in todo if not t[2].exists()]
+    for name, src, _, _ in todo:  # before any compiler starts: a hook may refuse
+        devseams.building(f"{name}.cu", src.read_bytes(), NVCC_FLAGS)
     jobs = []
-    for name in names:
-        src, so, log = _paths(name)
-        if so.exists():
-            continue
+    for name, src, so, log in todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],

@@ -20,6 +20,7 @@ import torch
 
 from m3_tpu_torch._bits import funnel, shr
 from m3_tpu_torch.parallel import _cuda
+from m3_tpu_torch.x import devseams
 
 KERNEL = "extract_fields"
 launches = 0  # kernel launches since the last reset (the wrappers' count)
@@ -92,4 +93,5 @@ def extract_fields64_t(words_t, offs_t, widths_t):
             torch.cuda.current_stream(words_t.device).cuda_stream)
     _cuda.check(lib, rc, "extract_fields64_t")
     launches += 1
+    devseams.launched(KERNEL, 1)
     return out

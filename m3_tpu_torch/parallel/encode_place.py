@@ -16,6 +16,7 @@ import ctypes
 import torch
 
 from m3_tpu_torch.parallel import _cuda
+from m3_tpu_torch.x import devseams
 
 KERNEL = "place_words"
 launches = 0  # kernel launches since the last reset (the wrappers' count)
@@ -78,4 +79,5 @@ def place_words(frags, keys, out_words: int):
                                 torch.cuda.current_stream(frags.device).cuda_stream)
     _cuda.check(lib, rc, "place_words")
     launches += 1
+    devseams.launched(KERNEL, 1)
     return out

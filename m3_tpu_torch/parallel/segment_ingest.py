@@ -31,6 +31,7 @@ import ctypes
 import torch
 
 from m3_tpu_torch.parallel import _cuda
+from m3_tpu_torch.x import devseams
 
 INGEST_KERNEL = "segment_ingest"
 MINMAX_KERNEL = "segment_minmax"
@@ -266,6 +267,7 @@ def segment_ingest_into(sum_col, cnt_col, sq_col, idx, values):
             int(cnt_col.dtype == torch.int64), stream.cuda_stream, ctypes.byref(grids))
     _cuda.check(lib, rc, "segment_ingest_into")
     launches[INGEST_KERNEL] += grids.value
+    devseams.launched(INGEST_KERNEL, grids.value)
 
 
 def segment_minmax_into(mn_col, mx_col, idx, values):
@@ -291,6 +293,7 @@ def segment_minmax_into(mn_col, mx_col, idx, values):
             torch.cuda.current_stream(values.device).cuda_stream)
     _cuda.check(lib, rc, "segment_minmax_into")
     launches[MINMAX_KERNEL] += 1
+    devseams.launched(MINMAX_KERNEL, 1)
 
 
 def segment_ingest(slots, values, capacity: int, with_sq: bool = False):

@@ -12,13 +12,24 @@ and written as one fileset volume.  The volume is byte-identical to the
 one ``m3_tpu.tools.hops.run_pipeline(root=...)`` writes for the same
 corpus.
 
-Two passes over the corpus: the first pays the kernels' builds and the
-lazy initialisations (``cold``), the second is steady state.  Each hop's
-wall ends in ``torch.cuda.synchronize()`` on a CUDA device.  The
-reference also counts each hop's host↔device transfers, bytes and
-dispatches with ``x/hopwatch``, an XLA instrument with no port; this
-report states walls and each hop's share of the steady wall only, and
-says so under ``not_measured``.
+Three passes over the corpus, each writing its own volume:
+
+1. ``cold``, under ``x/hopwatch``: the cold ledger (the kernels' builds,
+   the first loads and lazy initialisations);
+2. ``steady``, not counted: the walls (each hop's ends in
+   ``torch.cuda.synchronize()`` on a CUDA device), each hop's share of
+   the steady wall and samples/s — counting costs host time, so no wall
+   of the report but a ledger's own ``wall_s`` is taken under it;
+3. ``ledger``, under ``x/hopwatch``: the steady ledger.
+
+Each hop's ledger (``steady``, ``cold``) has the reference's keys:
+transfers host→device and device→host with their bytes, builds
+(``compiles``) and dispatches (device ops plus hand-kernel grids), and
+``transfers``, ``bytes_moved`` and ``dispatches`` from the steady one.
+``seams`` breaks both ledgers down by the op, factory or kernel each
+count came from (``x/hopwatch.seams``).
+On ``device="cpu"`` nothing crosses a device boundary, so the ledger
+counts no transfer and no dispatch.
 
     python -m m3_tpu_torch.tools.hops [--S 1024] [--T 320] [--device cpu]
 """
@@ -145,18 +156,24 @@ def volume_digest(root) -> str:
 
 @contextlib.contextmanager
 def _hop(stats: dict | None, name: str, device):
-    t0 = time.perf_counter()
-    yield
-    if stats is not None:
-        if device is not None and device.type == "cuda":
-            import torch
+    """A hop's scope: its wall into ``stats`` (ending in a synchronize on
+    a CUDA device), and, while ``x/hopwatch`` is installed, its ledger."""
+    from m3_tpu_torch.x import hopwatch
 
-            torch.cuda.synchronize(device)
-        stats[name] = stats.get(name, 0.0) + time.perf_counter() - t0
+    with hopwatch.hop(name) if hopwatch.installed() else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        yield
+        if stats is not None:
+            if device is not None and device.type == "cuda":
+                import torch
+
+                torch.cuda.synchronize(device)
+            stats[name] = stats.get(name, 0.0) + time.perf_counter() - t0
 
 
 def _run_pass(frames, policy, opts, root: Path, device):
-    """One full wire→fileset pass; returns (hop walls, samples)."""
+    """One full wire→fileset pass; returns (hop walls, samples).  Under
+    ``x/hopwatch``, each hop's ledger too."""
     from m3_tpu_torch.aggregator.engine import Aggregator
     from m3_tpu_torch.metrics.types import MetricType
     from m3_tpu_torch.msg import protocol as wire
@@ -185,34 +202,66 @@ def _run_pass(frames, policy, opts, root: Path, device):
     return walls, n_samples
 
 
-def run_pipeline(S: int = S_DEFAULT, T: int = T_DEFAULT,
-                 root: str | None = None, device=None) -> dict:
-    """Two-pass profile on ``device`` (None = CUDA); returns the report.
-    The volumes land under ``root`` (``cold/`` and ``steady/``), or in a
-    temporary directory."""
-    import torch
+def ledger_pass(frames, policy, opts, root: Path, device):
+    """One pass under ``x/hopwatch``: (the per-hop ledgers, the ledger by
+    seam, samples).  Installs the profiler for the pass unless it is
+    installed, and resets it first."""
+    from m3_tpu_torch.x import hopwatch
 
-    from m3_tpu_torch import resolve_device
+    was = hopwatch.installed()
+    hopwatch.install()
+    try:
+        hopwatch.reset()
+        _, n = _run_pass(frames, policy, opts, root, device)
+        return hopwatch.stats(), hopwatch.seams(), n
+    finally:
+        if not was:
+            hopwatch.uninstall()
+
+
+def pipeline_inputs(S: int = S_DEFAULT, T: int = T_DEFAULT):
+    """(frames, policy, aggregator options) of the corpus at S x T."""
     from m3_tpu_torch.aggregator.engine import AggregatorOptions
     from m3_tpu_torch.metrics.policy import StoragePolicy
 
-    dev = resolve_device(device)
     policy = StoragePolicy.parse(f"{RESOLUTION_S}s:2d")
     opts = AggregatorOptions(
         capacity=1 << max(10, (S - 1).bit_length()), num_windows=4,
         storage_policies=(policy,))
-    ids, ts, vals = _corpus(S, T)
-    frames = _encode_frames(ids, ts, vals)
+    return _encode_frames(*_corpus(S, T)), policy, opts
+
+
+def run_pipeline(S: int = S_DEFAULT, T: int = T_DEFAULT,
+                 root: str | None = None, device=None) -> dict:
+    """Three-pass profile on ``device`` (None = CUDA); returns the report.
+    The volumes land under ``root`` (``cold/``, ``steady/`` and
+    ``ledger/``), or in a temporary directory."""
+    import torch
+
+    from m3_tpu_torch import resolve_device
+
+    dev = resolve_device(device)
+    frames, policy, opts = pipeline_inputs(S, T)
     with tempfile.TemporaryDirectory() as tmp:
         base = Path(root) if root else Path(tmp)
+        cold, cold_seams, n = ledger_pass(frames, policy, opts, base / "cold", dev)
         t0 = time.perf_counter()
-        cold, n = _run_pass(frames, policy, opts, base / "cold", dev)
-        cold_wall = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        steady, _ = _run_pass(frames, policy, opts, base / "steady", dev)
+        walls, _ = _run_pass(frames, policy, opts, base / "steady", dev)
         steady_wall = time.perf_counter() - t0
-        digests = {p: volume_digest(base / p) for p in ("cold", "steady")}
-    total = sum(steady.get(h, 0.0) for h in HOPS)
+        steady, steady_seams, _ = ledger_pass(frames, policy, opts, base / "ledger", dev)
+        digests = {p: volume_digest(base / p) for p in ("cold", "steady", "ledger")}
+    total = sum(walls.get(h, 0.0) for h in HOPS)
+    hops = {}
+    for h in HOPS:
+        st = steady.get(h, {})
+        hops[h] = {
+            "steady": st, "cold": cold.get(h, {}),
+            "steady_wall_s": walls.get(h, 0.0),
+            "host_time_fraction": walls.get(h, 0.0) / total if total else 0.0,
+            "transfers": st.get("h2d_count", 0) + st.get("d2h_count", 0),
+            "bytes_moved": st.get("h2d_bytes", 0) + st.get("d2h_bytes", 0),
+            "dispatches": st.get("dispatches", 0),
+        }
     return {
         "artifact": "PIPELINE",
         "generated_by": "python -m m3_tpu_torch.tools.hops",
@@ -222,19 +271,25 @@ def run_pipeline(S: int = S_DEFAULT, T: int = T_DEFAULT,
             "device_name": (torch.cuda.get_device_name(dev)
                             if dev.type == "cuda" else "cpu"),
         },
-        "hops": {h: {"cold_wall_s": cold.get(h, 0.0),
-                     "steady_wall_s": steady.get(h, 0.0),
-                     "host_time_fraction": (steady.get(h, 0.0) / total
-                                            if total else 0.0)}
-                 for h in HOPS},
-        "pipeline": {"wall_cold_s": cold_wall, "wall_steady_s": steady_wall,
-                     "samples_per_s_wire_to_bytes": (n / steady_wall
-                                                     if steady_wall else 0.0)},
+        "passes": {
+            "cold": "pass 1, under x/hopwatch: the hops' cold ledgers",
+            "steady": "pass 2, not counted: every wall, share and rate",
+            "ledger": "pass 3, under x/hopwatch: the hops' steady ledgers",
+        },
+        "hops": hops,
+        "pipeline": {
+            "wall_steady_s": steady_wall,
+            "samples_per_s_wire_to_bytes": n / steady_wall if steady_wall else 0.0,
+            "transfer_bytes_steady": sum(v["bytes_moved"] for v in hops.values()),
+            "transfers_steady": sum(v["transfers"] for v in hops.values()),
+            "dispatches_steady": sum(v["dispatches"] for v in hops.values()),
+            "compiles_cold": sum(v["cold"].get("compiles", 0) for v in hops.values()),
+            "compiles_steady": sum(v["steady"].get("compiles", 0) for v in hops.values()),
+        },
+        "seams": {"cold": cold_seams, "steady": steady_seams},
         "volume_sha256": digests["steady"],
         "cold_volume_sha256": digests["cold"],
-        "not_measured": ("per-hop host<->device transfers, bytes moved, "
-                         "dispatches and compiles: the reference counts them "
-                         "with x/hopwatch, an XLA instrument with no port"),
+        "ledger_volume_sha256": digests["ledger"],
     }
 
 
@@ -247,8 +302,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     doc = run_pipeline(args.S, args.T, args.root, args.device)
     print(json.dumps(doc, indent=2))
+    digests = {doc["volume_sha256"], doc["cold_volume_sha256"], doc["ledger_volume_sha256"]}
     pinned = (args.S, args.T) == (S_DEFAULT, T_DEFAULT)
-    return 1 if pinned and doc["volume_sha256"] != PINNED_VOLUME_SHA256 else 0
+    return 1 if len(digests) > 1 or (pinned and doc["volume_sha256"] != PINNED_VOLUME_SHA256) else 0
 
 
 if __name__ == "__main__":

@@ -19,12 +19,18 @@ counterpart of ``m3_tpu/x/__init__.py``.
   watermarks.
 * ``controller``, ``chaos`` — the SLO-burn control loop and the seeded
   fault timeline (imported by their users, not here).
+* ``lockcheck``, ``hopwatch``, ``tracewatch`` — the runtime instruments:
+  the lock-order sanitizer, the per-hop ledger of transfers, builds and
+  dispatches, and the transfer guard with the build budget, over the
+  device boundary's seams in ``devseams`` (imported by their users, not
+  here).  Each is armed by code only: unlike the reference's, none reads
+  an environment variable.
 
 ``register_metrics(registry)`` mirrors the fault, retry, deadline,
 breaker, device-guard, device-memory and disk counters into an
 instrument registry at scrape time, so a node's ``/metrics`` exposes
-them.  The reference's XLA-only env seams (``lockcheck``,
-``tracewatch``, ``hopwatch``) have no port and are not mirrored.
+them.  The runtime instruments are test and profiling tools, not
+mirrored.
 """
 
 from __future__ import annotations

@@ -3,7 +3,10 @@ JAX package's ``m3_tpu.tools.hops.run_pipeline``.
 
 On a reduced corpus (the pinned generator at fewer series and seconds)
 both packages write their cold and steady volumes; every file is
-byte-identical and the volumes' sha256 digests equal.  The pinned corpus
+byte-identical and the volumes' sha256 digests equal.  The port's report
+carries the reference's per-hop ledger (``steady``, ``cold``,
+``transfers``, ``bytes_moved``, ``dispatches``) with the reference's
+keys and hop entries; on the CPU it counts no transfer or dispatch.  The pinned corpus
 (1,024 series x 320 s) takes the JAX package about 90 s a pass on a CPU,
 so its digest is pinned as a constant (``PINNED_VOLUME_SHA256``), derived
 from the JAX package's volume in ``test_torch_hops_pinned.py`` and held
@@ -45,7 +48,23 @@ def test_volume_equals_the_jax_pipeline(S, T, tmp_path):
     assert set(tdoc["hops"]) == set(jdoc["hops"]) == set(thops.HOPS)
     shares = [h["host_time_fraction"] for h in tdoc["hops"].values()]
     assert abs(sum(shares) - 1.0) < 1e-9 and min(shares) >= 0
-    assert "hopwatch" in tdoc["not_measured"]
+    # the per-hop ledger, with the reference's keys and entries; on the
+    # CPU nothing crosses a device boundary (the card's ledger is held
+    # against torch.profiler by chip_smoke.py phase 24)
+    assert "not_measured" not in tdoc
+    for h in thops.HOPS:
+        t, j = tdoc["hops"][h], jdoc["hops"][h]
+        assert {"steady", "cold", "transfers", "bytes_moved", "dispatches"} <= set(t)
+        for led in ("steady", "cold"):
+            assert set(t[led]) == set(j[led])
+            assert t[led]["entries"] == j[led]["entries"] > 0
+            assert (t[led]["h2d_count"], t[led]["d2h_count"], t[led]["dispatches"],
+                    t[led]["compiles"]) == (0, 0, 0, 0)
+        assert (t["transfers"], t["bytes_moved"], t["dispatches"]) == (0, 0, 0)
+    for k in ("transfer_bytes_steady", "transfers_steady", "dispatches_steady",
+              "compiles_cold", "compiles_steady"):
+        assert tdoc["pipeline"][k] == 0 and k in jdoc["pipeline"]
+    assert tdoc["ledger_volume_sha256"] == tdoc["volume_sha256"]
 
 
 def test_frames_are_the_jax_frames():

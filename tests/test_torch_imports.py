@@ -45,7 +45,10 @@ def test_every_module_imports_with_jax_blocked():
               "query.slo", "instrument.selfmon", "instrument.debug",
               "x.controller", "x.chaos", "ctl", "ctl.r2",
               # query federation and the Graphite front door
-              "metrics.carbon", "query.graphite", "query.fanout", "query.remote"):
+              "metrics.carbon", "query.graphite", "query.fanout", "query.remote",
+              # the proto value codec and the runtime instruments
+              "encoding.proto_codec", "encoding.proto_schema", "x.lockcheck",
+              "x.devseams", "x.hopwatch", "x.tracewatch"):
         assert f"m3_tpu_torch.{m}" in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

@@ -43,6 +43,7 @@ from m3_tpu_torch.parallel import _cuda
 from m3_tpu_torch.parallel import encode_place as ep
 from m3_tpu_torch.server import prom_remote as pr
 from m3_tpu_torch.server.assembly import run_node
+from m3_tpu_torch.x import lockcheck
 
 SEC = 10**9
 BLOCK = 2 * 3600 * SEC
@@ -53,6 +54,21 @@ QUERIERS = 2       # concurrent query_range requests, 2 each
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 DEVICES = ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)]
+
+
+@pytest.fixture(autouse=True)
+def lock_order_sanitizer():
+    """Every test here runs with the port's lock-order sanitizer armed in
+    raise mode over every lock the test makes, and fails on any finding."""
+    lockcheck.reset()
+    lockcheck.install(raise_on_cycle=True)
+    try:
+        yield
+        found = lockcheck.findings()
+    finally:
+        lockcheck.uninstall()
+        lockcheck.reset()
+    assert not found, "\n".join(map(str, found))
 
 
 def _device(name):

@@ -46,6 +46,7 @@ import m3_tpu_torch.metrics.transformation as ttf
 import m3_tpu_torch.metrics.types as ttypes
 import m3_tpu_torch.msg.protocol as twire
 import m3_tpu_torch.server.ingest_tcp as tingest
+from m3_tpu_torch.x import lockcheck
 from m3_tpu_torch.x import fault as tfault
 
 SEC = 10**9
@@ -833,6 +834,29 @@ def test_sampled_client_trace_joins_the_server_batch_span():
     q.close()
     srv.shutdown()
     srv.server_close()
+
+
+# tests run with the port's lock-order sanitizer armed (raise mode)
+LOCKCHECKED = ("test_concurrent_clients_and_ticks_equal_a_serial_run",)
+
+
+@pytest.fixture(autouse=True)
+def lock_order_sanitizer(request):
+    """The tests in ``LOCKCHECKED`` run with the port's lock-order
+    sanitizer armed in raise mode over every lock they make, and fail on
+    any finding."""
+    if request.node.originalname not in LOCKCHECKED:
+        yield
+        return
+    lockcheck.reset()
+    lockcheck.install(raise_on_cycle=True)
+    try:
+        yield
+        found = lockcheck.findings()
+    finally:
+        lockcheck.uninstall()
+        lockcheck.reset()
+    assert not found, "\n".join(map(str, found))
 
 
 def test_concurrent_clients_and_ticks_equal_a_serial_run():
