@@ -403,8 +403,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    every series' first datapoint: kernel #1 equal to its plain version,
    fallback under 5 %, and every 100th series through the scalar decoder
    gives back the annotation bytes and every point.
+25. the measuring tools, after phase 23 (a) in its lane: (a) the COSTS
+   artifact (``tools/costs.build_artifact``: one counted eager run a
+   registered stage at the canonical shapes, after a warm-up) built twice
+   on the card, the two equal in every gated metric, the first green
+   against ``m3_tpu_torch/tools/costs_baseline_cuda.json``, each stage
+   launching exactly the kernels ``costwatch.STAGE_KERNELS`` names, every
+   launch held bit for bit against its plain version on inputs kept on
+   the host and checked after both builds, the membudget formulas within
+   [1, 2] of their measured actuals and the census's step counts within
+   10 % of the documented ones; (b) ``tools/decode_profile`` in both
+   modes at config #2's width over phase 3's corpus (``PROFILE_REPS``
+   timed runs, PERF.md §4), its layers nesting in dispatches a step; (c)
+   ``tools/card_bisect`` at its default corpus (512 x 720): stages 1-5
+   equal on the card and on the CPU, stage 6 equal; (d) the PromQL
+   comparator on the card, its default corpus and a 256-series x 360-point
+   one: no mismatch; (e) the host aggregator baseline (``native/aggproxy``,
+   single-core C++) at configs #3/#4's 10^6 series, its seconds printed
+   on lines of their own, its quantiles held to numpy's order statistics
+   on a sample of ids.
 
-Order.  Phases 16, 18-19 and 22-24 run in lanes: spawned processes of
+Order.  Phases 16, 18-19 and 22-25 run in lanes: spawned processes of
 their own, started with the script (phase 18's request builders start in
 its lane then), released after phase 11 and joined after phase 17.  The main
 process meanwhile runs phases 12-15, 20 and 17, in that order; phase 21
@@ -430,7 +449,9 @@ main paths: kernels #3 and #4 in (a)'s f64 step, #1 in (c)'s encode,
 #1 in (c)'s flush, #2 in (c)'s volume check), and ``graphite_launches``
 (phase 23's path: #1 in (a)'s flush, #2 in its volume check), and
 ``instrument_launches`` (phase 24's path: #1 in (a)'s encode hops and
-(d)'s encode; none of #2-#4: the packed layout and the scalar decoder);
+(d)'s encode; none of #2-#4: the packed layout and the scalar decoder),
+and ``measure_launches`` (phase 25's (a)-(d): all four in (a)'s census,
+#1 and #2 in (b)'s profile and (c)'s bisector);
 ``shared_card`` names the phases whose kernel times were taken while a
 lane ran beside them.
 The last three lines are a JSON line of kernel records, the card's name
@@ -6147,16 +6168,17 @@ def control_plane_on_a_node(seed: int, dev) -> dict:
     return out
 
 
-def device_control_lane(seed: int) -> dict:
-    """Phase 22 and phase 23 (a) in a lane of their own (its caching
-    allocator in expandable segments, which split every block to its
-    request): (a) OOM, (b) budgets and footprints, then phase 22's main
-    path with every launch counted — the f64 ingest stage at full width,
-    (c) breakers on a node, (d)-(e) the control plane — and the wall of
-    each part; then phase 23 (a) (``graphite_front_door``).  Returns
-    phase 22's parts' results, launches and each kernel's largest
-    difference from its plain version, and phase 23 (a)'s under
-    ``front_door``."""
+def device_control_lane(seed: int, card: str) -> dict:
+    """Phase 22, phase 23 (a) and phase 25 in a lane of their own (its
+    caching allocator in expandable segments, which split every block to
+    its request): (a) OOM, (b) budgets and footprints, then phase 22's
+    main path with every launch counted — the f64 ingest stage at full
+    width, (c) breakers on a node, (d)-(e) the control plane — and the
+    wall of each part; then phase 23 (a) (``graphite_front_door``); then
+    phase 25 (``measuring_tools_phase``).  Returns phase 22's parts'
+    results, launches and each kernel's largest difference from its
+    plain version, phase 23 (a)'s under ``front_door`` and phase 25's
+    under ``measure``."""
     import torch
 
     torch.set_num_threads(1)
@@ -6180,8 +6202,12 @@ def device_control_lane(seed: int) -> dict:
     torch.cuda.empty_cache()
     front_door = front_door_part(graphite_front_door, seed, dev)
     log(f"phase23 (a) done in {front_door['part']['wall_s']:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    measure = measuring_tools_phase(seed, dev, card)
+    log(f"phase25 done in {time.perf_counter() - t0:.1f} s")
     return {"parts": out, "launches": launches, "max_abs_err": err,
-            "front_door": front_door}
+            "front_door": front_door, "measure": measure}
 
 
 def device_control_records(kernels: list, got: dict, card: str) -> None:
@@ -6965,8 +6991,9 @@ class InputRecord:
 
 def kernel_grids(seams: dict) -> dict:
     """hop -> hand kernel -> grids, from a ledger by seam."""
-    return {h: {k.split(":", 2)[2]: v[0] for k, v in rows.items()
-                if k.startswith("dispatch:kernel:")} for h, rows in seams.items()}
+    from m3_tpu_torch.x import optext
+
+    return {h: optext.kernel_census(rows) for h, rows in seams.items()}
 
 
 def hops_ledger(S: int, T: int, dev, card: str, tag: str, profile: bool) -> dict:
@@ -7458,6 +7485,292 @@ def instrument_records(kernels: list, got: dict, card: str) -> None:
     log(f"phase24 [{card}] the runtime instruments and the proto codec: " + json.dumps(parts))
 
 
+# ---- phase 25: the measuring tools ------------------------------------------
+
+PROFILE_SERIES, PROFILE_POINTS = 100_000, 720  # config #2's width, phase 3's corpus
+PROFILE_REPS = 1  # decode_profile's timed repetitions, of its 4 (PERF.md §4)
+BISECT_SERIES, BISECT_POINTS = 512, 720  # card_bisect's default corpus
+COMPARE_SERIES, COMPARE_POINTS = 256, 360  # (d)'s larger generated corpus
+AGG_IDS = 1_000_000  # configs #3/#4's series
+AGG_ROLLUP_SAMPLES = 6_000_000  # one 1 m window of six 10 s scrapes
+AGG_TIMER_SAMPLES = 10_000_000  # config #4's 10M samples over 1M timer ids
+
+
+class HostKept:
+    """Within ``with``, every call of ``owner.attr`` (a kernel wrapper as
+    its caller looks it up) runs as before, and host copies of its inputs
+    are kept — made under ``costwatch.uncounted()``, so a census counts
+    none of the copying, and held off the card, so no device memory is
+    held across the pass.  ``check`` then launches the kernel again on
+    device copies of each kept call's inputs and holds its result against
+    ``plain`` run on the host copies, bit for bit: the returned tensor, or
+    with ``cols`` the first ``cols`` arguments (in-place columns)."""
+
+    def __init__(self, owner, attr: str, plain, cols: int = 0):
+        self.owner, self.attr, self.plain, self.cols = owner, attr, plain, cols
+        self.calls: list = []
+
+    def __enter__(self):
+        import torch
+
+        from m3_tpu_torch.x import costwatch
+
+        fn = self.fn = getattr(self.owner, self.attr)
+
+        def kept(*a):
+            with costwatch.uncounted():
+                self.calls.append(tuple(x.to("cpu", copy=True) if isinstance(x, torch.Tensor)
+                                        else x for x in a))
+            return fn(*a)
+
+        setattr(self.owner, self.attr, kept)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attr, self.fn)
+        return False
+
+    def check(self, dev) -> tuple:
+        """(calls checked, largest difference); raises unless bit-equal."""
+        import torch
+
+        err, n = 0.0, len(self.calls)
+        for a in self.calls:
+            on_dev = [x.to(dev) if isinstance(x, torch.Tensor) else x for x in a]
+            host = [x.clone() if isinstance(x, torch.Tensor) else x for x in a]
+            if self.cols:
+                self.fn(*on_dev)
+                self.plain(*host)
+                pairs = [(d, h) for d, h in zip(on_dev[:self.cols], host[:self.cols])
+                         if d is not None]
+            else:
+                pairs = [(self.fn(*on_dev), self.plain(*host))]
+            for d, h in pairs:
+                d = d.cpu()
+                assert same_bits(d, h), f"{self.attr} kernel != plain on a stage's inputs"
+                err = max(err, max_abs_err(d, h) if d.numel() else 0.0)
+        self.calls.clear()
+        return n, err
+
+
+def census_on_card(dev, card: str) -> dict:
+    """(a) The COSTS artifact over every registered stage, built twice on
+    the card: both builds agree in every gated metric (tolerance 0), the
+    first checks green against ``costs_baseline_cuda.json``, each stage
+    launches exactly the kernels ``costwatch.STAGE_KERNELS`` names, every
+    launch is bit-equal to its plain version (its inputs kept on the host
+    and checked after both builds), the membudget formulas hold to their
+    contract and the census's step counts track the documented ones.  The
+    artifact is written to ``build/costs_cuda.json``."""
+    import contextlib
+
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.parallel import decode_gather, encode_place
+    from m3_tpu_torch.parallel import segment_ingest as si
+    from m3_tpu_torch.tools import costs
+    from m3_tpu_torch.x import costwatch
+
+    recs = {"place_words": HostKept(mt, "place_words", encode_place.place_words_plain),
+            "extract_fields64_t": HostKept(mt, "extract_fields64_t",
+                                           decode_gather.extract_fields64_t_plain),
+            "segment_ingest": HostKept(si, "segment_ingest_into",
+                                       si.segment_ingest_into_plain, cols=3),
+            "segment_minmax": HostKept(si, "segment_minmax_into",
+                                       si.segment_minmax_into_plain, cols=2)}
+    zero_launches()
+    arts, walls = [], []
+    with contextlib.ExitStack() as stack:
+        for r in recs.values():
+            stack.enter_context(r)
+        for _ in range(2):
+            costwatch.clear_stage_cache()
+            t0 = time.perf_counter()
+            arts.append(costs.build_artifact(device=dev))
+            walls.append(time.perf_counter() - t0)
+    launches = read_launches()
+    art = arts[0]
+    (ROOT / "build").mkdir(exist_ok=True)
+    (ROOT / "build" / "costs_cuda.json").write_text(json.dumps(art, indent=1, sort_keys=True))
+    diff = costs.check_artifact(arts[1], arts[0], tolerance=0.0)
+    assert not diff, "the two card builds disagree:\n" + "\n".join(e["message"] for e in diff)
+    base = costs.default_baseline_path("cuda")
+    assert base.exists(), f"no card baseline at {base}"
+    viol = costs.check_against_baseline(art, base)
+    assert not viol, "census != costs_baseline_cuda.json:\n" + "\n".join(
+        v["message"] for v in viol)
+    bad = costs.stage_kernel_violations(art)
+    assert not bad, bad
+    mb = art["membudget_crosscheck"]
+    for name, rec in {**mb["arena"], **mb["codec"]}.items():
+        assert 1.0 <= rec["ratio"] <= 2.0, (name, rec)
+    for key in ("decode", "encode"):
+        assert 0.9 <= art["opsdp_crosscheck"][key]["census_vs_documented"] <= 1.1, \
+            art["opsdp_crosscheck"]
+    err, checked = {}, {}
+    for name, r in recs.items():
+        checked[name], err[name] = r.check(dev)
+    assert all(checked.values()), checked
+    for name, fp in art["stages"].items():
+        log(f"phase25 (a) [{card}] {name}: {fp['dispatches']} dispatches "
+            f"({json.dumps(fp['ops'])}), width64 {fp['width64']}, kernels "
+            f"{json.dumps(fp['kernels'])}, transfers {json.dumps(fp['transfers'])}, "
+            f"peak {fp['memory']['peak_bytes']} B, {fp['dispatches_per_dp']} dispatches/dp")
+    log(f"phase25 (a) [{card}] membudget crosscheck: {json.dumps(mb)}")
+    log(f"phase25 (a) [{card}] step counts: {json.dumps(art['opsdp_crosscheck'])}")
+    log(f"phase25 (a) [{card}] two builds {walls[0]:.1f} s and {walls[1]:.1f} s, equal in "
+        f"every gated metric, green against {base.name}; launches {launches}, each "
+        f"re-launched on its kept inputs == plain ({checked} calls)")
+    return {"build_s": walls, "launches": launches, "checked_calls": checked,
+            "max_abs_err": err}
+
+
+def profile_on_card(seed: int, dev, card: str) -> dict:
+    """(b) ``tools/decode_profile`` in both modes on the card at config #2's
+    width over phase 3's corpus (the encode first; the decode profiles its
+    streams), ``PROFILE_REPS`` timed repetitions; word placement and the
+    gather tail launch kernels #1 and #2."""
+    from m3_tpu_torch.tools import decode_profile as dp
+
+    corpus = make_batch(seed, PROFILE_SERIES, PROFILE_POINTS)
+    keep: dict = {}
+    zero_launches()
+    t0 = time.perf_counter()
+    enc = dp.profile_encode(PROFILE_SERIES, PROFILE_POINTS, dev, corpus=corpus,
+                            reps=PROFILE_REPS, keep=keep)
+    t1 = time.perf_counter()
+    dec = dp.profile(PROFILE_SERIES, PROFILE_POINTS, dev, packed=keep.pop("packed"),
+                     reps=PROFILE_REPS)
+    launches = read_launches()
+    assert launches["place_words"] > 0 and launches["extract_fields64_t"] > 0, launches
+    for mode, got in (("encode", enc), ("decode", dec)):
+        per = got["dispatches_per_step"]
+        assert list(per.values()) == sorted(per.values()), (mode, per)  # the layers nest
+        log(f"phase25 (b) [{card}] decode_profile --mode {mode}: " + json.dumps(got))
+    return {"encode": enc, "decode": dec, "encode_s": t1 - t0,
+            "decode_s": time.perf_counter() - t1, "launches": launches}
+
+
+def bisect_on_card(dev, card: str) -> dict:
+    """(c) ``tools/card_bisect`` at its default corpus: stages 1-5 equal on
+    the card and on the CPU; stage 6 (f64 made on the card) equal."""
+    import torch
+
+    from m3_tpu_torch.tools import card_bisect
+
+    zero_launches()
+    t0 = time.perf_counter()
+    res = card_bisect.bisect(torch.device("cpu"), dev, BISECT_SERIES, BISECT_POINTS)
+    launches = read_launches()
+    assert not res["bad"], f"card_bisect: diverging stages {res['bad']}"
+    assert res["f64_output_equal"]
+    assert launches["place_words"] > 0 and launches["extract_fields64_t"] > 0, launches
+    log(f"phase25 (c) [{card}] card_bisect S={BISECT_SERIES} T={BISECT_POINTS}: stages 1-5 "
+        f"equal, stage 6 equal, in {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return {"wall_s": time.perf_counter() - t0, "launches": launches}
+
+
+def comparator_on_card(seed: int, dev, card: str) -> dict:
+    """(d) The PromQL comparator on the card: the default corpus, then a
+    larger generated one; no mismatch in either."""
+    from m3_tpu_torch.comparator import harness
+
+    out = {}
+    for tag, kw in (("default", {}),
+                    ("large", {"seed": seed + 25, "num_series": COMPARE_SERIES,
+                               "num_points": COMPARE_POINTS})):
+        t0 = time.perf_counter()
+        rep = harness.run_comparator(str(store_root(f"phase25-{tag}")), device=dev, **kw)
+        sample = [(m.query, m.tags, m.step_index, m.engine_value, m.naive_value)
+                  for m in rep.mismatches[:8]]
+        assert rep.ok, (tag, len(rep.mismatches), sample)
+        assert rep.queries_run == len(harness.DEFAULT_CORPUS)
+        out[tag] = {"queries": rep.queries_run, "series": rep.series_compared,
+                    "values": rep.values_compared, "wall_s": time.perf_counter() - t0}
+    log(f"phase25 (d) [{card}] comparator, no mismatch: " + json.dumps(out))
+    return out
+
+
+def host_baseline(seed: int, card: str) -> dict:
+    """(e) The single-core Go-aggregator proxy at configs #3/#4's 10^6
+    series (host C++, not compared with the card): the counter and gauge
+    rollups of one 1 m window, the timer quantiles of 10^7 samples, each
+    id's quantiles held to numpy's order statistics on a sample."""
+    from m3_tpu_torch.native import aggproxy
+
+    rng = np.random.default_rng(seed + 250)
+    C, N, NT = AGG_IDS, AGG_ROLLUP_SAMPLES, AGG_TIMER_SAMPLES
+    ids = rng.integers(0, C, N, dtype=np.uint32)
+    cvals = rng.integers(0, 1000, N, dtype=np.int64)
+    gvals = np.round(rng.uniform(0, 100, N), 3)
+    times = 1_700_000_000 * SEC + np.arange(N, dtype=np.int64)
+    tc = aggproxy.counter_rollup_ns(ids, cvals, C)
+    tg = aggproxy.gauge_rollup_ns(ids, gvals, times, C)
+    tids = rng.integers(0, C, NT, dtype=np.uint32)
+    tvals = np.round(rng.gamma(2.0, 50.0, NT), 3)
+    qs = (0.5, 0.95, 0.99)
+    tt, qout = aggproxy.timer_quantiles(tids, tvals, C, qs)
+    order = np.argsort(tids, kind="stable")
+    bounds = np.searchsorted(tids[order], np.arange(C + 1))
+    for i in rng.integers(0, C, 100):
+        mine = np.sort(tvals[order[bounds[i]:bounds[i + 1]]])
+        if mine.size:
+            ranks = [min(max(int(np.ceil(q * mine.size)) - 1, 0), mine.size - 1) for q in qs]
+            assert np.array_equal(qout[i, :3], mine[ranks]), i
+    out = {"counter_rollup_s": tc, "gauge_rollup_s": tg, "timer_quantiles_s": tt,
+           "rollup_samples_per_s": 2 * N / (tc + tg), "timer_samples_per_s": NT / tt}
+    log(f"phase25 (e) [{card}] host baseline counter rollup: {tc:.4f} s for {N:,} samples "
+        f"over {C:,} ids")
+    log(f"phase25 (e) [{card}] host baseline gauge rollup: {tg:.4f} s for {N:,} samples")
+    log(f"phase25 (e) [{card}] host baseline timer p50/p95/p99: {tt:.4f} s for {NT:,} "
+        f"samples over {C:,} ids")
+    return out
+
+
+def measuring_tools_phase(seed: int, dev, card: str) -> dict:
+    """Phase 25: (a) the census and its ratchet, (b) the codec profile, (c)
+    the card bisector, (d) the PromQL comparator, (e) the host aggregator
+    baseline, each part's wall beside it.  Kernel launches are counted
+    from 0 over (a)-(d), the phase's path; (a)'s are each held against
+    the plain versions (those checking launches not counted), (b)'s run
+    at phase 3's shapes, (c)'s outputs are held against the CPU's."""
+    import torch
+
+    from m3_tpu_torch.x import breaker, devguard
+
+    breaker.reset_registry()
+    devguard.reset_stages()
+    parts, walls = {}, {}
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    for key, fn in (("a", lambda: census_on_card(dev, card)),
+                    ("b", lambda: profile_on_card(seed, dev, card)),
+                    ("c", lambda: bisect_on_card(dev, card)),
+                    ("d", lambda: comparator_on_card(seed, dev, card)),
+                    ("e", lambda: host_baseline(seed, card))):
+        zero_launches()
+        t0 = time.perf_counter()
+        parts[key] = fn()
+        walls[key] = time.perf_counter() - t0
+        # (a)-(c) read their launches before any check launches again
+        for k, v in parts[key].get("launches", read_launches()).items():
+            launches[k] += v
+        torch.cuda.empty_cache()
+    log(f"phase25 [{card}] part walls (s): {json.dumps(walls)}")
+    parts["walls_s"] = walls
+    return {"parts": parts, "launches": launches, "max_abs_err": parts["a"].pop("max_abs_err")}
+
+
+def measuring_records(kernels: list, got: dict, card: str) -> None:
+    """Phase 25's result into the kernel records: ``measure_launches`` (its
+    path's launches, each above 0: the census runs all four) and its
+    largest difference from the plain versions."""
+    for k in kernels:
+        name = k["name"]
+        k["measure_launches"] = got["launches"][name]
+        k["max_abs_err"] = max(k["max_abs_err"], got["max_abs_err"][name])
+    assert all(k["measure_launches"] > 0 for k in kernels), got["launches"]
+    log(f"phase25 [{card}] launches on its path: {got['launches']}")
+
+
 # ---- lanes: phases in processes of their own, beside the main one ----
 
 KERNEL_NAMES = ("place_words", "extract_fields64_t", "segment_ingest", "segment_minmax")
@@ -7601,14 +7914,14 @@ def main() -> int:
 
     card = card_line()
     t_start = time.perf_counter()
-    # phases 16, 18-19 and 22-24 run in lanes, processes of their own started
+    # phases 16, 18-19 and 22-25 run in lanes, processes of their own started
     # now and released after phase 11, beside phases 12-15, 20 and 17 in
     # this one (PERF.md §4)
     lanes = []
     try:
         lanes.append(Lane("phase16", downsample_lane, args.seed, card))
         lanes.append(Lane("phases18-19", node_tier_lane, args.seed, card))
-        lanes.append(Lane("phases22-23a", device_control_lane, args.seed,
+        lanes.append(Lane("phases22-23a-25", device_control_lane, args.seed, card,
                           env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}))
         lanes.append(Lane("phases23b-24", federation_lane, args.seed, card))
         return run(args, lanes, card, t_start)
@@ -7618,7 +7931,7 @@ def main() -> int:
 
 
 def run(args, lanes: list, card: str, t_start: float) -> int:
-    """Phases 1-24 (see the module docstring); ``lanes`` wait for their
+    """Phases 1-25 (see the module docstring); ``lanes`` wait for their
     release after phase 11."""
     import torch
 
@@ -7880,7 +8193,7 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
     del packed_t
     torch.cuda.empty_cache()
 
-    # ---- the lanes start: phases 16, 18-19 and 22-24 beside 12-15, 20, 17 ----
+    # ---- the lanes start: phases 16, 18-19 and 22-25 beside 12-15, 20, 17 ----
     for lane in lanes:
         lane.release()
     spans = {}  # phase -> (process, wall start, wall end)
@@ -7943,7 +8256,7 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
     spans["phase17"] = ("main", w0, time.time())
     torch.cuda.empty_cache()
 
-    # ---- the lanes end: phase 16, phases 18-19, phases 22-24 ----
+    # ---- the lanes end: phase 16, phases 18-19, phases 22-25 ----
     ds_lane, node_lane, ctl_lane, fed_lane = lanes
     downsample_records(kernels, ds_lane.result(), fwd, card)
     merge_records(kernels, node_lane.result()["records"])
@@ -7952,6 +8265,7 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
     fed = fed_lane.result()
     front_door_records(kernels, ctl["front_door"], fed["federation"], card)
     instrument_records(kernels, fed["instruments"], card)
+    measuring_records(kernels, ctl["measure"], card)
     for lane in lanes:
         spans[lane.name] = (lane.name, *lane.span)
     shared = shared_phases(spans)

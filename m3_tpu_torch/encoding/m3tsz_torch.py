@@ -1125,7 +1125,8 @@ def decode_batch_device(words, nbits, max_points: int, default_unit: int = 1,
 
 def _decode_batch_device(words, nbits, max_points: int, default_unit: int = 1,
                          device=None, timings: dict | None = None,
-                         chains: str = "auto", scan_major: bool = False):
+                         chains: str = "auto", scan_major: bool = False,
+                         ctrl_tbl=None):
     """Decode (S, W) stream words (int64 carriers of big-endian u64
     words) in two phases: the bit-boundary scan (``_decode_step``), then
     field extraction + chain reconstruction, by one of two tails that
@@ -1156,7 +1157,8 @@ def _decode_batch_device(words, nbits, max_points: int, default_unit: int = 1,
     # the per-series initial unit depends only on the start's alignment
     aligned = (wpad[:, 0] % Unit(default_unit).nanos()) == 0
     unit0 = _W(aligned, int(default_unit), 0)
-    ctrl_tbl = value_ctrl_table(dev)
+    if ctrl_tbl is None:
+        ctrl_tbl = value_ctrl_table(dev)
 
     P = max_points
     fused = chains == "fused"

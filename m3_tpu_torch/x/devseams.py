@@ -26,6 +26,10 @@ thread under both pays for one.  The seams:
 * **builds** — ``parallel/_cuda.build`` (``nvcc``) and
   ``native/_build.load_native`` (``g++``) call :func:`building` before a
   compiler runs; a library found built is not a build.
+* **op names** — listeners in :data:`OPS` receive every aten op a
+  watching thread dispatches, on any device, the CPU included (views and
+  metadata queries not), with its operands and its result, after it ran:
+  ``x/costwatch``'s census reads them, and ``x/optext`` classes them.
 
 A dispatch mode is per thread.  A thread *watches* between
 :func:`enter` and :func:`leave` (nested; ``hopwatch.install`` and
@@ -44,7 +48,7 @@ import threading
 import torch
 
 __all__ = ["TransferError", "enter", "leave", "watching", "guard", "launched",
-           "building", "COUNTERS", "BUILD_HOOKS"]
+           "building", "COUNTERS", "BUILD_HOOKS", "OPS"]
 
 
 class TransferError(RuntimeError):
@@ -58,6 +62,10 @@ COUNTERS: list = []
 # callables(source, signature) called before a compiler runs; hopwatch's
 # and tracewatch's while installed (tracewatch's may raise)
 BUILD_HOOKS: list = []
+# callables(name, args, kwargs, out) called in the watching thread after
+# every aten op on any device (views and metadata queries not);
+# costwatch's census while one is open
+OPS: list = []
 
 _tls = threading.local()  # depth, mode, quiet (inside a factory seam), guard
 _mu = threading.Lock()
@@ -182,6 +190,12 @@ def _count(kind: str, seam: str, n: int, nbytes: int) -> None:
         fn(kind, seam, n, nbytes)
 
 
+def _counted(func, name: str) -> bool:
+    """Whether an op counts as a dispatch (views and metadata queries
+    do not)."""
+    return not (func.is_view or name in _METADATA)
+
+
 def _observe(func, args, kwargs) -> None:
     name = func._schema.name
     if not (any(t.device.type != "cpu" for t in _tensors(args, kwargs))
@@ -197,7 +211,7 @@ def _observe(func, args, kwargs) -> None:
                 f"no_transfers() region — move it out of the guarded section "
                 f"or wrap the host boundary in tracewatch.allow_transfers()")
         _count(direction, name, n, nbytes)
-    if not (func.is_view or name in _METADATA):
+    if _counted(func, name):
         _count("dispatch", name, 1, 0)
 
 
@@ -208,9 +222,14 @@ def _mode_class():
         class _BoundaryMode(TorchDispatchMode):
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
                 kwargs = kwargs or {}
-                if not getattr(_tls, "quiet", False):
+                quiet = getattr(_tls, "quiet", False)
+                if not quiet:
                     _observe(func, args, kwargs)
-                return func(*args, **kwargs)
+                out = func(*args, **kwargs)
+                if OPS and not quiet and _counted(func, func._schema.name):
+                    for fn in list(OPS):
+                        fn(func._schema.name, args, kwargs, out)
+                return out
 
         _MODE.append(_BoundaryMode)
     return _MODE[0]

@@ -46,7 +46,7 @@ __all__ = [
     "reserve", "transient", "set_budget", "snapshot", "counters",
     "reset", "arena_bytes", "buffer_bytes", "counter_arena_bytes",
     "gauge_arena_bytes", "timer_arena_bytes", "encode_lane_bytes",
-    "decode_lane_bytes", "block_bytes",
+    "decode_lane_bytes", "encode_lane_parts", "decode_lane_parts", "block_bytes",
 ]
 
 
@@ -296,33 +296,48 @@ def buffer_bytes(num_windows: int, sample_capacity: int) -> int:
 # lane tables, offset prefix sums and (4T, S) fragment planes the encode
 # keeps live at once, and the (P, S) lane tables and chain planes of the
 # decode tails.  Each covers the pass's measured device peak
-# (chip_smoke.py phase 22 prints the ratio) with headroom.
+# (chip_smoke.py phase 22 prints the ratio) with headroom; phase 25 (a)
+# holds all three to [1, 2] of the card's peak at the costwatch
+# canonical shapes (the fused tail measured ~10 B/dp there, so its
+# coefficient is the reference's 16, not 48, which over-admitted 2.4x).
 _ENCODE_TEMP_PER_DP = 320
-_DECODE_TEMP_PER_DP = {"gather": 240, "fused": 48}
+_DECODE_TEMP_PER_DP = {"gather": 240, "fused": 16}
 _DECODE_PAD_WORDS = 16  # the decoder's zero pad after each stream
+
+
+def encode_lane_parts(S: int, T: int, out_words: int) -> dict:
+    """:func:`encode_lane_bytes` by part: the exact ``args`` (ts i64 +
+    value bits i64 + valid bool + start i64) and ``out`` (words +
+    total_bits + fallback), and the ``temp`` coefficient's bytes."""
+    return {"args": 17 * S * T + 8 * S, "out": 8 * S * out_words + 9 * S,
+            "temp": _ENCODE_TEMP_PER_DP * S * T}
 
 
 def encode_lane_bytes(S: int, T: int, out_words: int) -> int:
     """Transient device bytes of one encode pass: the exact argument
-    footprint (ts i64 + value bits i64 + valid bool + start i64), the
-    exact output (words + total_bits + fallback), and the temp
-    coefficient.  The reference's ``place=`` argument is dropped: the
-    port has one placement (kernel #1)."""
-    args = 17 * S * T + 8 * S
-    out = 8 * S * out_words + 9 * S
-    return args + out + _ENCODE_TEMP_PER_DP * S * T
+    footprint, the exact output and the temp coefficient
+    (:func:`encode_lane_parts`).  The reference's ``place=`` argument is
+    dropped: the port has one placement (kernel #1)."""
+    return sum(encode_lane_parts(S, T, out_words).values())
+
+
+def decode_lane_parts(S: int, W: int, max_points: int,
+                      chains: str = "gather") -> dict:
+    """:func:`decode_lane_bytes` by part: the exact ``args`` (words +
+    nbits) with their padded copy, the exact ``out`` (ts i64 + payload
+    i64 + meta u8 per point, plus err/prec/ann) and the tail's ``temp``
+    coefficient's bytes."""
+    return {"args": 8 * S * W + 8 * S + 8 * S * (W + _DECODE_PAD_WORDS),
+            "out": 17 * S * max_points + 24 * S,
+            "temp": _DECODE_TEMP_PER_DP[chains] * S * max_points}
 
 
 def decode_lane_bytes(S: int, W: int, max_points: int,
                       chains: str = "gather") -> int:
     """Transient device bytes of one decode pass through the ``chains``
     tail (``"gather"`` or ``"fused"``, the port's two tails; ``W`` =
-    stream words per series): exact arguments (words + nbits) and their
-    padded copy, exact outputs (ts i64 + payload i64 + meta u8 per
-    point, plus err/prec/ann), and the tail's temp coefficient.  The
-    control table is resident (``decode.ctrl_table``), not counted here;
-    the reference's ``extract=`` argument is dropped (one extraction:
-    kernel #2)."""
-    args = 8 * S * W + 8 * S + 8 * S * (W + _DECODE_PAD_WORDS)
-    out = 17 * S * max_points + 24 * S
-    return args + out + _DECODE_TEMP_PER_DP[chains] * S * max_points
+    stream words per series): the parts of :func:`decode_lane_parts`.
+    The control table is resident (``decode.ctrl_table``), not counted
+    here; the reference's ``extract=`` argument is dropped (one
+    extraction: kernel #2)."""
+    return sum(decode_lane_parts(S, W, max_points, chains).values())

@@ -48,7 +48,11 @@ def test_every_module_imports_with_jax_blocked():
               "metrics.carbon", "query.graphite", "query.fanout", "query.remote",
               # the proto value codec and the runtime instruments
               "encoding.proto_codec", "encoding.proto_schema", "x.lockcheck",
-              "x.devseams", "x.hopwatch", "x.tracewatch"):
+              "x.devseams", "x.hopwatch", "x.tracewatch",
+              # the measuring tools
+              "x.optext", "x.costwatch", "tools.costs", "tools.decode_profile",
+              "tools.card_bisect", "native.aggproxy", "comparator",
+              "comparator.naive_promql", "comparator.harness"):
         assert f"m3_tpu_torch.{m}" in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
