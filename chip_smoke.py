@@ -422,8 +422,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    single-core C++) at configs #3/#4's 10^6 series, its seconds printed
    on lines of their own, its quantiles held to numpy's order statistics
    on a sample of ids.
+26. the static and IR gates, in a lane of their own: (a) the port's
+   m3lint (``x/lint.run_repo``) over ``m3_tpu_torch/`` on the card's
+   machine, equal to the committed (empty) baseline; (b) the IRLINT
+   artifact (``x/irlint.build_artifact``) on the card from one census
+   build, each stage launching exactly the kernels
+   ``costwatch.STAGE_KERNELS`` names, every launch bit-equal to its
+   plain version (the census's inputs kept on the host, the residency
+   pass's on the card), each 64-bit ceiling equal to the card's census,
+   the op and 64-bit type census equal to the CPU's on the same machine
+   once each launch's own census less its plain version's is taken off,
+   but for the card's routes (a ``_to_copy`` per transfer, ``_sqrt``'s
+   ``aten::sqrt``), the residency pass at ``irlint.PIPE`` equal to its
+   per-hop ledger with the ingest -> drain seam composed, and the artifact green
+   against ``m3_tpu_torch/tools/irlint_baseline_cuda.json``, its five
+   rule counts printed; (c) the residency at config #3's width (10^6
+   series, T cut to 10 s as in phase 24), every seam equal to the
+   ledger, the drain -> encode bytes printed beside phase 24's, each
+   kernel #1 launch bit-equal to plain; (d) the
+   five seeded regressions, each flipping its rule on the card, and a
+   baseline pinned to another card or torch refused.
 
-Order.  Phases 16, 18-19 and 22-25 run in lanes: spawned processes of
+Order.  Phases 16, 18-19 and 22-26 run in lanes: spawned processes of
 their own, started with the script (phase 18's request builders start in
 its lane then), released after phase 11 and joined after phase 17.  The main
 process meanwhile runs phases 12-15, 20 and 17, in that order; phase 21
@@ -451,7 +471,9 @@ main paths: kernels #3 and #4 in (a)'s f64 step, #1 in (c)'s encode,
 ``instrument_launches`` (phase 24's path: #1 in (a)'s encode hops and
 (d)'s encode; none of #2-#4: the packed layout and the scalar decoder),
 and ``measure_launches`` (phase 25's (a)-(d): all four in (a)'s census,
-#1 and #2 in (b)'s profile and (c)'s bisector);
+#1 and #2 in (b)'s profile and (c)'s bisector), and ``gate_launches``
+(phase 26's (b)-(c): all four in (b)'s census, #1 in the residency
+passes' encodes);
 ``shared_card`` names the phases whose kernel times were taken while a
 lane ran beside them.
 The last three lines are a JSON line of kernel records, the card's name
@@ -7504,11 +7526,20 @@ class HostKept:
     held across the pass.  ``check`` then launches the kernel again on
     device copies of each kept call's inputs and holds its result against
     ``plain`` run on the host copies, bit for bit: the returned tensor, or
-    with ``cols`` the first ``cols`` arguments (in-place columns)."""
+    with ``cols`` the first ``cols`` arguments (in-place columns).
+
+    A call made inside a counted run (``costwatch.counting()``) and
+    labelled with its stage by ``tag`` is also counted in ``check``: the
+    launch on the device copies and the wrapper on host copies (its plain
+    version), each in a census of its own.  ``deltas`` holds, by stage,
+    the ops and the 64-bit results the launches made less those their
+    plain versions made: what the card's census of the stage differs from
+    the CPU's by, launch for launch."""
 
     def __init__(self, owner, attr: str, plain, cols: int = 0):
         self.owner, self.attr, self.plain, self.cols = owner, attr, plain, cols
-        self.calls: list = []
+        self.calls: list = []  # [inputs, counted, stage]
+        self.deltas: dict = {}
 
     def __enter__(self):
         import torch
@@ -7518,9 +7549,10 @@ class HostKept:
         fn = self.fn = getattr(self.owner, self.attr)
 
         def kept(*a):
+            counted = costwatch.counting()
             with costwatch.uncounted():
-                self.calls.append(tuple(x.to("cpu", copy=True) if isinstance(x, torch.Tensor)
-                                        else x for x in a))
+                self.calls.append([tuple(x.to("cpu", copy=True) if isinstance(x, torch.Tensor)
+                                         else x for x in a), counted, None])
             return fn(*a)
 
         setattr(self.owner, self.attr, kept)
@@ -7530,25 +7562,95 @@ class HostKept:
         setattr(self.owner, self.attr, self.fn)
         return False
 
+    def tag(self, stage: str) -> None:
+        """Label every call not yet labelled as ``stage``'s."""
+        for c in self.calls:
+            if c[2] is None:
+                c[2] = stage
+
+    def _account(self, stage: str, launched: dict, plain: dict) -> None:
+        from collections import Counter
+
+        d = self.deltas.setdefault(stage, {"ops": Counter(), "wide": {}})
+        for rec, sign in ((launched, 1), (plain, -1)):
+            for op, n in rec["ops"].items():
+                d["ops"][op] += sign * n
+            for t, ops in rec["wide_results"].items():
+                row = d["wide"].setdefault(t, Counter())
+                for op, n in ops.items():
+                    row[op] += sign * n
+
     def check(self, dev) -> tuple:
         """(calls checked, largest difference); raises unless bit-equal."""
         import torch
 
+        from m3_tpu_torch.x import costwatch
+
+        dup = lambda a, to=None: [(x.to(to) if to else x.clone())
+                                  if isinstance(x, torch.Tensor) else x for x in a]
         err, n = 0.0, len(self.calls)
-        for a in self.calls:
-            on_dev = [x.to(dev) if isinstance(x, torch.Tensor) else x for x in a]
-            host = [x.clone() if isinstance(x, torch.Tensor) else x for x in a]
+        for a, counted, stage in self.calls:
+            on_dev, host = dup(a, dev), dup(a)
+            with costwatch.census() as launched:
+                got = self.fn(*on_dev)
+            want = self.plain(*host)
             if self.cols:
-                self.fn(*on_dev)
-                self.plain(*host)
                 pairs = [(d, h) for d, h in zip(on_dev[:self.cols], host[:self.cols])
                          if d is not None]
             else:
-                pairs = [(self.fn(*on_dev), self.plain(*host))]
+                pairs = [(got, want)]
             for d, h in pairs:
                 d = d.cpu()
                 assert same_bits(d, h), f"{self.attr} kernel != plain on a stage's inputs"
                 err = max(err, max_abs_err(d, h) if d.numel() else 0.0)
+            if counted and stage is not None:
+                again = dup(a)
+                with costwatch.census() as plain:
+                    self.fn(*again)  # the wrapper on the host: its plain version
+                self._account(stage, launched.records(), plain.records())
+        self.calls.clear()
+        return n, err
+
+
+class DeviceKept:
+    """As :class:`HostKept` for a pass whose transfers are counted (a
+    per-hop ledger): each call's inputs and result are kept as clones on
+    the card, so no copy crosses to the host during the pass, and
+    ``check`` holds each result as it was launched against ``plain`` on
+    host copies of its inputs, bit for bit."""
+
+    def __init__(self, owner, attr: str, plain):
+        self.owner, self.attr, self.plain = owner, attr, plain
+        self.calls: list = []
+
+    def __enter__(self):
+        import torch
+
+        fn = self.fn = getattr(self.owner, self.attr)
+
+        def kept(*a):
+            out = fn(*a)
+            self.calls.append((tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                                     for x in a), out.clone()))
+            return out
+
+        setattr(self.owner, self.attr, kept)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attr, self.fn)
+        return False
+
+    def check(self) -> tuple:
+        """(calls checked, largest difference); raises unless bit-equal."""
+        import torch
+
+        err, n = 0.0, len(self.calls)
+        for a, out in self.calls:
+            want = self.plain(*(x.cpu() if isinstance(x, torch.Tensor) else x for x in a))
+            got = out.cpu()
+            assert same_bits(got, want), f"{self.attr} kernel != plain on a pass's inputs"
+            err = max(err, max_abs_err(got, want) if got.numel() else 0.0)
         self.calls.clear()
         return n, err
 
@@ -7771,6 +7873,362 @@ def measuring_records(kernels: list, got: dict, card: str) -> None:
     log(f"phase25 [{card}] launches on its path: {got['launches']}")
 
 
+# ---- phase 26: the static and IR gates ----
+
+GATE_WIDE = {"S": 1_000_000, "T": 10, "resolution_s": 10}  # config #3's width, phase 24's cut
+PHASE24_DRAIN_ENCODE = (503_316_480, 42_000_000)  # phase 24's wide pass: down, up (PERF.md §5)
+
+
+def lint_on_card(card: str) -> dict:
+    """(a) The port's m3lint over its own tree on the card's machine: the
+    findings equal the committed (empty) baseline."""
+    from m3_tpu_torch.x import lint
+
+    t0 = time.perf_counter()
+    findings, new, fixed = lint.run_repo()
+    secs = time.perf_counter() - t0
+    assert not new and not fixed, "m3lint != lint_baseline.json:\n" + "\n".join(
+        f.render() for f in new + fixed)
+    base = lint.load_baseline(lint.default_baseline_path())
+    log(f"phase26 (a) [{card}] m3lint over m3_tpu_torch/: {len(findings)} findings, "
+        f"{len(base)} in the baseline, equal; {secs:.1f} s")
+    return {"findings": len(findings), "baseline": len(base), "s": secs}
+
+
+def _less(card: dict, cpu: dict, launched: dict) -> dict:
+    """card - cpu - launched, by op, without the zeros."""
+    out = {op: card.get(op, 0) - cpu.get(op, 0) - launched.get(op, 0)
+           for op in set(card) | set(cpu) | set(launched)}
+    return {op: d for op, d in sorted(out.items()) if d}
+
+
+def census_vs_cpu(card_stages: dict, cpu_stages: dict, launched: dict) -> dict:
+    """The card's op census and 64-bit type census against the CPU's on
+    this machine, stage by stage and op by op.  What the stage's launches
+    account for (``launched``: by stage, from :class:`HostKept`, each
+    launch's ops and 64-bit results less its plain version's) is taken
+    off first; what is left must be the card's routes and nothing else:
+    one ``aten::_to_copy`` for each of the stage's transfers (a no-op on
+    the CPU), at most that many of them 64-bit, and ``arena._sqrt``'s
+    ``aten::sqrt`` with one float64 result each (numpy on the CPU).
+    Returns each stage's difference and the routes left of it."""
+    from m3_tpu_torch.x import irlint
+
+    out = {}
+    for name, cs in card_stages.items():
+        card, cpu = cs.records, cpu_stages[name].records
+        acc = launched.get(name, {"ops": {}, "wide": {}})
+        ops = _less(card["ops"], cpu["ops"], acc["ops"])
+        wide = {t: _less(card["wide_results"].get(t, {}), cpu["wide_results"].get(t, {}),
+                         acc["wide"].get(t, {})) for t in irlint.WIDE_TYPES}
+        copies = sum(n for k, (n, _) in card["transfers"].items()
+                     if k.endswith(":aten::_to_copy"))
+        sqrt = ops.get("aten::sqrt", 0)
+        assert (set(ops) <= {"aten::_to_copy", "aten::sqrt"} and sqrt >= 0
+                and ops.get("aten::_to_copy", 0) == copies), (name, ops, copies, acc["ops"])
+        wide_copies = sum(w.pop("aten::_to_copy", 0) for w in wide.values())
+        assert 0 <= wide_copies <= copies, (name, wide_copies, copies)
+        assert wide["float64"].pop("aten::sqrt", 0) == sqrt, (name, wide, sqrt)
+        assert not any(wide.values()), (name, wide, acc["wide"])
+        out[name] = {"ops": _less(card["ops"], cpu["ops"], {}),
+                     "wide": {t: d for t in irlint.WIDE_TYPES if (d := _less(
+                         card["wide_results"].get(t, {}), cpu["wide_results"].get(t, {}), {}))},
+                     "routes": ops}
+    return out
+
+
+def irlint_on_card(dev, card: str) -> dict:
+    """(b) The IRLINT artifact on the card from one census build: each
+    stage launching exactly the kernels ``costwatch.STAGE_KERNELS`` names,
+    every launch held bit for bit against its plain version (the census's
+    inputs kept on the host, the residency pass's kept on the card, each
+    checked after its pass), each 64-bit ceiling equal to the card's
+    census, the op and type census equal to the CPU's on this machine
+    but for what each launch accounts for and the card's routes, the
+    residency pass at PIPE recorded equal to its per-hop ledger, and the
+    artifact green against ``irlint_baseline_cuda.json`` (written to
+    ``build/irlint_cuda.json``)."""
+    import contextlib
+
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.parallel import decode_gather, encode_place
+    from m3_tpu_torch.parallel import segment_ingest as si
+    from m3_tpu_torch.tools import costs
+    from m3_tpu_torch.x import costwatch, irlint
+
+    recs = {"place_words": HostKept(mt, "place_words", encode_place.place_words_plain),
+            "extract_fields64_t": HostKept(mt, "extract_fields64_t",
+                                           decode_gather.extract_fields64_t_plain),
+            "segment_ingest": HostKept(si, "segment_ingest_into",
+                                       si.segment_ingest_into_plain, cols=3),
+            "segment_minmax": HostKept(si, "segment_minmax_into",
+                                       si.segment_minmax_into_plain, cols=2)}
+
+    def on_stage(name, _seconds):
+        for r in recs.values():
+            r.tag(name)
+
+    costwatch.clear_stage_cache()
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for r in recs.values():
+            stack.enter_context(r)
+        card_stages = costwatch.counted_stages(device=dev, on_stage=on_stage)  # the one build
+    census_s = time.perf_counter() - t0
+    # the residency pass's launches are kept on the card: a kept host
+    # copy would be a transfer in the pass's ledger
+    with DeviceKept(mt, "place_words", encode_place.place_words_plain) as res_kept:
+        art = irlint.build_artifact(device=dev)
+    launches = read_launches()
+    build_s = time.perf_counter() - t0
+    (ROOT / "build").mkdir(exist_ok=True)
+    (ROOT / "build" / "irlint_cuda.json").write_text(json.dumps(art, indent=1, sort_keys=True))
+    bad = costs.stage_kernel_violations(
+        {"config": {"platform": "cuda"},
+         "stages": {n: cs.fingerprint for n, cs in card_stages.items()}})
+    assert not bad, bad
+    err, checked = {}, {}
+    for name, r in recs.items():
+        checked[name], err[name] = r.check(dev)
+    n, e = res_kept.check()
+    assert n, "the residency pass launched no place_words"
+    checked["place_words"] += n
+    err["place_words"] = max(err["place_words"], e)
+    assert all(checked.values()), checked
+    for name, cs in card_stages.items():
+        ceil, types = irlint.width_contract(name, "cuda"), cs.fingerprint["types"]
+        for t in irlint.WIDE_TYPES:
+            if t not in irlint.WIDE_FORBIDDEN.get(name, ()):
+                assert types.get(t, 0) == ceil[t], (name, t, types.get(t, 0), ceil[t])
+    res = art["residency"]
+    assert res["ledger_equal"], json.dumps(res)
+    assert res["seams"][0]["composed"], res["seams"][0]
+    base = irlint.default_baseline_path("cuda")
+    assert base.exists(), f"no card baseline at {base}"
+    errs = irlint.check_against_baseline(art, base)
+    assert not errs, "irlint != irlint_baseline_cuda.json:\n" + "\n".join(
+        e["message"] for e in errs)
+    t1 = time.perf_counter()
+    cpu_stages = costwatch.counted_stages(device="cpu")
+    launched: dict = {}
+    for r in recs.values():
+        for stage, d in r.deltas.items():
+            acc = launched.setdefault(stage, {"ops": {}, "wide": {}})
+            for op, k in d["ops"].items():
+                acc["ops"][op] = acc["ops"].get(op, 0) + k
+            for t, row in d["wide"].items():
+                for op, k in row.items():
+                    acc["wide"].setdefault(t, {})[op] = acc["wide"].get(t, {}).get(op, 0) + k
+    diff = census_vs_cpu(card_stages, cpu_stages, launched)
+    assert set(launched) == set(costwatch.STAGE_KERNELS), sorted(launched)
+    cpu_s = time.perf_counter() - t1
+    for f in art["findings"]:
+        log(f"phase26 (b) [{card}] [{f['rule']}] {f['path']}: {f['message']}")
+    for name, d in diff.items():
+        log(f"phase26 (b) [{card}] {name}: card - CPU ops {json.dumps(d['ops'])}, 64-bit "
+            f"results {json.dumps(d['wide'])}; routes left after the launches "
+            f"{json.dumps(d['routes'])}")
+    for sm in res["seams"]:
+        log(f"phase26 (b) [{card}] residency at PIPE {sm['seam']}: composed {sm['composed']}, "
+            f"{sm['transfers']} crossings {sm['bytes']} B, scalars {json.dumps(sm['scalars'])}, "
+            f"ledger {json.dumps(sm.get('ledger'))}")
+    log(f"phase26 (b) [{card}] rule counts {json.dumps(art['counts'])}; census {census_s:.1f} s, "
+        f"artifact {build_s:.1f} s, CPU census {cpu_s:.1f} s; green against {base.name}; "
+        f"launches {launches} (the residency pass's place_words {n}), each held against "
+        f"plain ({checked} calls)")
+    return {"counts": art["counts"], "launches": launches, "checked_calls": checked,
+            "max_abs_err": err, "census_s": census_s, "build_s": build_s, "cpu_census_s": cpu_s,
+            "residency": res, "census_vs_cpu": diff}
+
+
+def residency_wide_on_card(dev, card: str) -> dict:
+    """(c) The chain's residency at config #3's width (10^6 series, T cut
+    to 10 s as phase 24 cut it): every seam's transfers equal to the
+    per-hop ledger of the same pass, the ingest -> drain seam composed,
+    the drain -> encode bytes beside phase 24's, and each of the pass's
+    kernel launches held bit for bit against its plain version."""
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.parallel import encode_place
+    from m3_tpu_torch.x import irlint
+
+    zero_launches()
+    t0 = time.perf_counter()
+    with DeviceKept(mt, "place_words", encode_place.place_words_plain) as kept:
+        found, res = irlint.residency_report(dev, GATE_WIDE)
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    checked, err = kept.check()
+    assert checked == launches["place_words"] > 0, (checked, launches)
+    assert res["ledger_equal"], json.dumps(res)
+    assert res["seams"][0]["composed"], res["seams"][0]
+    assert res["samples"] == GATE_WIDE["S"] * GATE_WIDE["T"]
+    drain = res["seams"][1]
+    down = sum(c["bytes_each"] * c["transfers"] for c in drain["crossings"]
+               if c["direction"] == "d2h")
+    up = sum(c["bytes_each"] * c["transfers"] for c in drain["crossings"]
+             if c["direction"] == "h2d")
+    for f in found:
+        log(f"phase26 (c) [{card}] [{f.rule}] {f.path}: {f.message}")
+    for sm in res["seams"]:
+        log(f"phase26 (c) [{card}] {sm['seam']}: composed {sm['composed']}, {sm['transfers']} "
+            f"crossings {sm['bytes']} B, scalars {json.dumps(sm['scalars'])}, ledger "
+            f"{json.dumps(sm.get('ledger'))}")
+    log(f"phase26 (c) [{card}] drain -> encode at 10^6 x 10: {down} B down and {up} B up "
+        f"(phase 24: {PHASE24_DRAIN_ENCODE[0]} B and {PHASE24_DRAIN_ENCODE[1]} B); "
+        f"entry {json.dumps(res['entry'])}, exit {json.dumps(res['exit'])}; {secs:.1f} s; "
+        f"launches {launches}, place_words == plain on each ({checked} calls)")
+    return {"s": secs, "down": down, "up": up, "launches": launches,
+            "max_abs_err": {"place_words": err},
+            "seams": [{k: sm[k] for k in ("seam", "composed", "transfers", "bytes")}
+                      for sm in res["seams"]]}
+
+
+def seeded_on_card(dev, card: str) -> dict:
+    """(d) The five seeded regressions on the card, each flipping its rule
+    (an added ``scatter_``, an added int64 cast, an added ``.item()`` in a
+    stage, the decoder's table moved to a per-call upload, the ingest's
+    state pulled to the host at the composed ingest -> drain seam), and a
+    baseline pinned to another card or torch refused."""
+    import copy
+
+    import torch
+
+    from m3_tpu_torch.aggregator import engine
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.x import costwatch, irlint
+
+    stages = {s.name: s for s in costwatch.STAGES}
+
+    def flips(name, seeded, rule, fn_args=None):
+        fn, args, dp = fn_args or stages[name].build(dev)[:3]
+        good = irlint.program(name, fn, args, dp, dev)
+        bad = irlint.program(name, seeded(fn), args, dp, dev)
+        before = [f for f in irlint.analyze_program(good)[0] if f.rule == rule]
+        after = [f for f in irlint.analyze_program(bad)[0] if f.rule == rule]
+        assert not before and after, (name, rule, before, after)
+        return after[0].message
+
+    def scatter(fn):
+        def run(*a):
+            out = fn(*a)
+            torch.zeros(8, dtype=torch.float64, device=dev).scatter_(
+                0, torch.arange(2, dtype=torch.int64, device=dev),
+                torch.ones(2, dtype=torch.float64, device=dev))
+            return out
+        return run
+
+    def cast(fn):
+        def run(st):
+            out = fn(st)
+            out[1].to(torch.int32).to(torch.int64)  # the counts: an added int64 cast
+            return out
+        return run
+
+    def item(fn):
+        def run(st):
+            out = fn(st)
+            out[0].sum().item()
+            return out
+        return run
+
+    def upload(fn):
+        return lambda tbl, i: fn(torch.as_tensor(mt._VALUE_CTRL_TBL.astype(np.int32),
+                                                 device=i.device), i)
+
+    t0 = time.perf_counter()
+    got = {
+        "scatter-budget": flips("arena/counter_consume_packed", scatter, "scatter-budget"),
+        "width-discipline": flips("arena/counter_consume_f64", cast, "width-discipline"),
+        "transfer-free": flips("arena/gauge_consume_f64", item, "transfer-free"),
+        "ir-const-bloat": flips("decode/gather", upload, "ir-const-bloat", fn_args=(
+            lambda tbl, i: tbl[i], (mt.value_ctrl_table(dev),
+                                    torch.zeros(16, dtype=torch.int64, device=dev)), 16)),
+    }
+    add = engine.Aggregator.add_untimed_batch
+
+    def pulled(self, *a, **kw):
+        out = add(self, *a, **kw)
+        for shard in self.shards:
+            for ml in shard.lists.values():
+                for t in ml.gauges.state:
+                    if isinstance(t, torch.Tensor) and t.dim():
+                        t.cpu()
+        return out
+
+    engine.Aggregator.add_untimed_batch = pulled
+    try:
+        found, res = irlint.residency_report(dev, {"S": 1024, "T": 10, "resolution_s": 10})
+    finally:
+        engine.Aggregator.add_untimed_batch = add
+    seam = res["seams"][0]
+    assert not seam["composed"] and res["ledger_equal"], seam
+    hits = [f for f in found if f.path == "seam:arena_ingest->window_drain"]
+    assert hits and all(" d2h arena_ingest." in f" {f.message}" for f in hits), found
+    got["residency-composition"] = hits[0].message
+    art = json.loads((ROOT / "build" / "irlint_cuda.json").read_text())
+    for key, value in (("device_name", "NVIDIA A100-SXM4-80GB"), ("torch", "0.0.0")):
+        base = copy.deepcopy(art)
+        base["config"][key] = value
+        kinds = [e["kind"] for e in irlint.check_artifact(art, base)]
+        assert kinds == [{"device_name": "device", "torch": "torch-version"}[key]], kinds
+    for rule, msg in got.items():
+        log(f"phase26 (d) [{card}] seeded: [{rule}] {msg}")
+    log(f"phase26 (d) [{card}] a baseline pinned to another card or torch: refused; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"flipped": sorted(got), "s": time.perf_counter() - t0}
+
+
+def gates_phase(seed: int, dev, card: str) -> dict:
+    """Phase 26: (a) m3lint, (b) irlint on the card, (c) residency at
+    config #3's width, (d) the seeded regressions; each part's wall.
+    Kernel launches are counted from 0 over (b) and (c), the phase's
+    path."""
+    import torch
+
+    walls, parts = {}, {}
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    for key, fn in (("a", lambda: lint_on_card(card)), ("b", lambda: irlint_on_card(dev, card)),
+                    ("c", lambda: residency_wide_on_card(dev, card)),
+                    ("d", lambda: seeded_on_card(dev, card))):
+        t0 = time.perf_counter()
+        parts[key] = fn()
+        walls[key] = time.perf_counter() - t0
+        for k, v in parts[key].get("launches", {}).items():
+            launches[k] += v
+        torch.cuda.empty_cache()
+    err = dict.fromkeys(KERNEL_NAMES, 0.0)
+    for part in parts.values():
+        for k, v in part.pop("max_abs_err", {}).items():
+            err[k] = max(err[k], v)
+    log(f"phase26 [{card}] part walls (s): {json.dumps(walls)}")
+    return {"parts": parts, "walls_s": walls, "launches": launches, "max_abs_err": err}
+
+
+def gates_lane(seed: int, card: str) -> dict:
+    """Phase 26 in a lane of its own."""
+    import torch
+
+    torch.set_num_threads(LANE_THREADS)
+    lane_wait()
+    t0 = time.perf_counter()
+    out = gates_phase(seed, torch.device("cuda"), card)
+    log(f"phase26 done in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def gates_records(kernels: list, got: dict, card: str) -> None:
+    """Phase 26's result into the kernel records: ``gate_launches`` (its
+    path's launches, each above 0: the census runs all four) and its
+    largest difference from the plain versions."""
+    for k in kernels:
+        name = k["name"]
+        k["gate_launches"] = got["launches"][name]
+        k["max_abs_err"] = max(k["max_abs_err"], got["max_abs_err"][name])
+    assert all(k["gate_launches"] > 0 for k in kernels), got["launches"]
+    log(f"phase26 [{card}] launches on its path: {got['launches']}")
+
+
 # ---- lanes: phases in processes of their own, beside the main one ----
 
 KERNEL_NAMES = ("place_words", "extract_fields64_t", "segment_ingest", "segment_minmax")
@@ -7914,7 +8372,7 @@ def main() -> int:
 
     card = card_line()
     t_start = time.perf_counter()
-    # phases 16, 18-19 and 22-25 run in lanes, processes of their own started
+    # phases 16, 18-19 and 22-26 run in lanes, processes of their own started
     # now and released after phase 11, beside phases 12-15, 20 and 17 in
     # this one (PERF.md §4)
     lanes = []
@@ -7924,6 +8382,7 @@ def main() -> int:
         lanes.append(Lane("phases22-23a-25", device_control_lane, args.seed, card,
                           env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}))
         lanes.append(Lane("phases23b-24", federation_lane, args.seed, card))
+        lanes.append(Lane("phase26", gates_lane, args.seed, card))
         return run(args, lanes, card, t_start)
     finally:
         for lane in lanes:
@@ -7931,7 +8390,7 @@ def main() -> int:
 
 
 def run(args, lanes: list, card: str, t_start: float) -> int:
-    """Phases 1-25 (see the module docstring); ``lanes`` wait for their
+    """Phases 1-26 (see the module docstring); ``lanes`` wait for their
     release after phase 11."""
     import torch
 
@@ -8193,7 +8652,7 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
     del packed_t
     torch.cuda.empty_cache()
 
-    # ---- the lanes start: phases 16, 18-19 and 22-25 beside 12-15, 20, 17 ----
+    # ---- the lanes start: phases 16, 18-19 and 22-26 beside 12-15, 20, 17 ----
     for lane in lanes:
         lane.release()
     spans = {}  # phase -> (process, wall start, wall end)
@@ -8256,8 +8715,8 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
     spans["phase17"] = ("main", w0, time.time())
     torch.cuda.empty_cache()
 
-    # ---- the lanes end: phase 16, phases 18-19, phases 22-25 ----
-    ds_lane, node_lane, ctl_lane, fed_lane = lanes
+    # ---- the lanes end: phase 16, phases 18-19, phases 22-25, phase 26 ----
+    ds_lane, node_lane, ctl_lane, fed_lane, gate_lane = lanes
     downsample_records(kernels, ds_lane.result(), fwd, card)
     merge_records(kernels, node_lane.result()["records"])
     ctl = ctl_lane.result()
@@ -8266,6 +8725,7 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
     front_door_records(kernels, ctl["front_door"], fed["federation"], card)
     instrument_records(kernels, fed["instruments"], card)
     measuring_records(kernels, ctl["measure"], card)
+    gates_records(kernels, gate_lane.result(), card)
     for lane in lanes:
         spans[lane.name] = (lane.name, *lane.span)
     shared = shared_phases(spans)

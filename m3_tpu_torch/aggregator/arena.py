@@ -195,7 +195,8 @@ def _sqrt(x):
     from ``np.sqrt`` on ~0.7 % of random inputs, sqrt(2.0) among them),
     so a CPU tensor goes through numpy."""
     if x.device.type == "cpu":
-        return torch.as_tensor(np.sqrt(x.detach().numpy()))
+        # a CPU tensor only (the branch tests the device): a view, no copy
+        return torch.as_tensor(np.sqrt(x.detach().numpy()))  # m3lint: disable=transfer-hygiene
     return torch.sqrt(x)
 
 
@@ -363,7 +364,7 @@ def gauge_ingest(state: GaugeState, idx, slots, values, times) -> GaugeState:
     # Per-lane winner for `last`: order by (idx asc, time asc, arrival
     # desc) with stable sorts, least significant key first; the final
     # element of each idx run is (max time, first arrival).
-    order = torch.arange(n - 1, -1, -1, device=values.device)
+    order = torch.arange(n - 1, -1, -1, dtype=torch.int64, device=values.device)
     order = order[torch.argsort(times[order], stable=True)]
     order = order[torch.argsort(idx[order], stable=True)]
     s_idx, s_val, s_times = idx[order], values[order], times[order]
@@ -449,7 +450,8 @@ def timer_append_plan(windows, slots, sample_n, capacity: int, scap: int):
     oob = (windows < 0) | (windows >= num_w)
     drop = oob | (slots < 0) | (slots >= capacity)
     order_key = torch.where(drop, num_w, windows).long()
-    onehot = order_key[None, :] == torch.arange(num_w, device=windows.device)[:, None]
+    onehot = order_key[None, :] == torch.arange(num_w, dtype=torch.int64,
+                                                 device=windows.device)[:, None]
     ranks_all = torch.cumsum(onehot.long(), dim=1) - 1  # (W, N)
     w_clip = order_key.clamp(0, num_w - 1)
     rank = ranks_all.gather(0, w_clip[None, :])[0]
@@ -644,7 +646,8 @@ def state_from_numpy(kind: str, arrays: Mapping[str, np.ndarray], device=None):
             a = a.view(np.int64)
         elif a.dtype == np.uint32:
             a = a.astype(np.int64)
-        fields[name] = torch.tensor(a, device=dev)
+        # an ndarray keeps its dtype, set just above to the field's layout
+        fields[name] = torch.tensor(a, device=dev)  # m3lint: disable=explicit-dtype
     return cls(**fields)
 
 
@@ -654,7 +657,8 @@ def state_to_numpy(state) -> dict:
     kind = next(k for k, c in _state_classes().items() if isinstance(state, c))
     out = {}
     for name, t in state._asdict().items():
-        a = t.detach().cpu().numpy().copy()
+        # the host snapshot is this function's contract (checkpoints)
+        a = t.detach().cpu().numpy().copy()  # m3lint: disable=transfer-hygiene
         want = _FIELD_DTYPES[kind][name]
         out[name] = a.view(np.uint64) if want == np.uint64 else a.astype(want, copy=False)
     return out
@@ -865,7 +869,9 @@ class TimerArena(_TimerLanesMixin, _Arena):
         batch would overflow it (the reference CM stream never drops
         samples — stream.go AddBatch — so neither do we; growth is
         geometric)."""
-        host = lambda x: x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        # the host sample counts read the batch's windows and slots, which
+        # callers hand in from the host (a tensor argument is copied here)
+        host = lambda x: x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)  # m3lint: disable=transfer-hygiene
         windows_np, slots_np = host(windows), host(slots)
         # Mirror the device-side drop mask: samples dropped for an
         # out-of-range window or slot take no buffer room.

@@ -316,7 +316,7 @@ class MetricMap:
                 while end < len(seq) and seq[end][1] == seq[start][1]:
                     end += 1
                 got, _ = self._native.resolve([m for m, _ in seq[start:end]], seq[start][1])
-                bad = np.nonzero(got != np.arange(start, end))[0]
+                bad = np.nonzero(got != np.arange(start, end, dtype=np.int64))[0]
                 if bad.size:
                     i = start + int(bad[0])
                     raise ValueError(
@@ -693,7 +693,8 @@ class MetricList:
         released = 0
         for mt in (MetricType.COUNTER, MetricType.GAUGE, MetricType.TIMER):
             arena = self._arena(mt)
-            last_at = arena.state.last_at.cpu().numpy()
+            # expiry frees map slots on the host: one read of the column
+            last_at = arena.state.last_at.cpu().numpy()  # m3lint: disable=transfer-hygiene
             stale = np.nonzero((last_at > 0) & (last_at < now_nanos - ttl_nanos))[0]
             if stale.size == 0:
                 continue
@@ -716,8 +717,10 @@ class MetricList:
         """0, 1 or 2 FlushedMetrics for one drained window: the window's
         aggregates, plus (when some slot's tail carries RESET) the
         forced-zero batch half a resolution later."""
-        lanes = lanes.cpu().numpy()
-        counts = counts.cpu().numpy()
+        # FlushedMetric carries host arrays, as the reference's _emit does:
+        # the drain -> encode crossing that irlint's residency rule records
+        lanes = lanes.cpu().numpy()  # m3lint: disable=transfer-hygiene
+        counts = counts.cpu().numpy()  # m3lint: disable=transfer-hygiene
         active = np.nonzero(counts > 0)[0]
         if active.size == 0:
             return []

@@ -108,7 +108,7 @@ def _first_k(mask, k: int, fill: int):
     rank = torch.cumsum(mask, 0) - 1
     dst = torch.where(mask & (rank < k), rank, k)
     out = torch.full((k + 1,), fill, dtype=torch.int64, device=mask.device)
-    out.scatter_(0, dst, torch.arange(mask.shape[0], device=mask.device))
+    out.scatter_(0, dst, torch.arange(mask.shape[0], dtype=torch.int64, device=mask.device))
     return out[:k]
 
 
@@ -376,7 +376,7 @@ def _counter_merge(state: PackedCounterState, segs, last_at, num_windows: int,
     pool_owner, pool_idx = state.pool_owner, state.pool_idx
     num_new = to_pool.sum()
     kn = _first_k(to_pool, K, wc)
-    valid = torch.arange(K, device=dev) < num_new
+    valid = torch.arange(K, dtype=torch.int64, device=dev) < num_new
     # allocate from FREE rows (owner < 0): rows released by clear_slots
     # are reused; a candidate with no free row keeps pool_idx == -1
     free = _first_k(pool_owner < 0, K, P)
@@ -913,7 +913,9 @@ class PackedTimerArena(_TimerLanesMixin, _Arena):
         self._sample_n_host = np.zeros(num_windows, np.int64)
 
     def ingest(self, windows, slots, values, times):
-        host = lambda x: x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        # the host sample counts read the batch's windows and slots, which
+        # callers hand in from the host (a tensor argument is copied here)
+        host = lambda x: x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)  # m3lint: disable=transfer-hygiene
         windows_np, slots_np = host(windows), host(slots)
         in_range = ((windows_np >= 0) & (windows_np < self.num_windows)
                     & (slots_np >= 0) & (slots_np < self.capacity))

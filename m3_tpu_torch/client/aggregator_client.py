@@ -115,7 +115,7 @@ class InstanceQueue:
         if self._sock is None:
             # fresh socket, no preamble yet; _connect only runs from
             # _send_one, which holds _io_lock
-            self._sock_sent_trace = False
+            self._sock_sent_trace = False  # m3lint: disable=lock-discipline
             s = wire.connect(self.address)
             try:
                 if self.want_acks:

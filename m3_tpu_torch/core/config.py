@@ -54,7 +54,9 @@ def parse_duration(v) -> int:
 def _expand_env(text: str) -> str:
     """${VAR} / ${VAR:default} expansion (x/config envExpand)."""
     def sub(m):
-        val = os.environ.get(m.group(1))
+        # the config file's own ${VAR} syntax (M3's envExpand): the file
+        # names the variable, so this is configuration, not an env seam
+        val = os.environ.get(m.group(1))  # m3lint: disable=retrace-risk
         if val is None:
             if m.group(2) is None:
                 raise ConfigError(f"config references unset env var {m.group(1)}")

@@ -105,8 +105,8 @@ def _hq_one(total, ubs, q):
     B = total.shape[0]
     dev = total.device
     return device_fns._histogram_quantile_kernel(
-        total, torch.arange(B, device=dev)[None, :],
-        torch.tensor([B], device=dev), ubs[None, :], q)[0]
+        total, torch.arange(B, dtype=torch.int64, device=dev)[None, :],
+        torch.tensor([B], dtype=torch.int64, device=dev), ubs[None, :], q)[0]
 
 
 def _tensor(x, dtype):
@@ -181,12 +181,14 @@ def single_device_reference(words, nbits, bucket_ids, step_times, ubs, range_nan
     rates, errs = _rates(on_dev(words, torch.int64).reshape(D * S, -1),
                          on_dev(nbits, torch.int64).reshape(D * S),
                          on_dev(step_times, torch.int64), range_nanos, max_points)
-    r = np.nan_to_num(rates.cpu().numpy())
+    # the oracle adds the bucket sum on the host in series order, and
+    # returns numpy: its reads are its contract
+    r = np.nan_to_num(rates.cpu().numpy())  # m3lint: disable=transfer-hygiene
     total = np.zeros((num_buckets, r.shape[1]), dtype=np.float64)
-    bid = np.clip(_tensor(bucket_ids, torch.int64).cpu().numpy().reshape(D * S), 0,
+    bid = np.clip(_tensor(bucket_ids, torch.int64).cpu().numpy().reshape(D * S), 0,  # m3lint: disable=transfer-hygiene
                   num_buckets - 1)
     np.add.at(total, bid, r)
     hq = _hq_one(torch.from_numpy(total).to(dev), on_dev(ubs, torch.float64), q)
-    return (rates.cpu().numpy().reshape(D, S, -1), hq.cpu().numpy(),
-            errs.cpu().numpy().reshape(D, S))
+    return (rates.cpu().numpy().reshape(D, S, -1), hq.cpu().numpy(),  # m3lint: disable=transfer-hygiene
+            errs.cpu().numpy().reshape(D, S))  # m3lint: disable=transfer-hygiene
 

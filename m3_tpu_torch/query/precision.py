@@ -14,26 +14,23 @@ vector matching) to float32, keeping:
   float64-distinct operands);
 - the float64 API surface: blocks are float64 on exit.
 
-Selection: ``set_compute_dtype("f32"|"f64")`` or ``M3_QUERY_DTYPE`` read
-once at import.  The policy chooses the arithmetic and never falls back:
-an unknown name raises.
+Selection: ``set_compute_dtype("f32"|"f64")``; the default is f64.  The
+reference also reads ``M3_QUERY_DTYPE`` at import; the port reads no
+environment (it has no env seams), so that variable leaves the port on
+f64, and the node's config has no setting for it: the port runs f32
+only where Python calls ``set_compute_dtype("f32")`` before its
+queries.  The policy chooses the arithmetic and never falls back: an
+unknown name raises.
 """
 
 from __future__ import annotations
-
-import os
 
 import numpy as np
 import torch
 
 _VALID = {"f32": np.float32, "f64": np.float64}
 _TORCH = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
-_env = os.environ.get("M3_QUERY_DTYPE", "").strip().lower() or "f64"
-if _env not in _VALID:
-    raise ValueError(
-        f"M3_QUERY_DTYPE={_env!r}: must be 'f32' or 'f64' (a typo "
-        "silently running f64 would invalidate a perf comparison)")
-_dtype = _VALID[_env]
+_dtype = _VALID["f64"]
 
 
 def set_compute_dtype(name: str) -> None:

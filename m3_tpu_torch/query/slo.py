@@ -200,9 +200,7 @@ class SLOEvaluator:
         self._gauges = {}
         if scope is not None:
             for r in self._rules:
-                # interned once per configured rule: rule names are
-                # config-bounded, never request-derived
-                g = scope.tagged({"rule": r.name}).gauge("slo_burn")
+                g = scope.tagged({"rule": r.name}).gauge("slo_burn")  # m3lint: disable=metric-hygiene — interned once per configured rule at construction; rule names are config-bounded, never request-derived
                 g.update(0.0)
                 self._gauges[r.name] = g
 

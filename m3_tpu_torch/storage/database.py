@@ -741,6 +741,9 @@ class Database:
         )
         self.corruption_detected = 0
         self.corruption_quarantined = 0
+        # a leaf lock for the two counters alone: shards report from any
+        # thread, and the hook must never wait on _mu
+        self._corruption_lock = threading.Lock()
         # (num_shards, owned) the topology watcher last installed:
         # inherited by namespaces created later (see ensure_namespace).
         self._ownership_template: tuple | None = None
@@ -753,9 +756,10 @@ class Database:
         counts every corruption event; ``quarantined`` only those where
         files were actually moved (a volume whose files vanished before
         the move detects without quarantining)."""
-        self.corruption_detected += 1
-        if quarantined:
-            self.corruption_quarantined += 1
+        with self._corruption_lock:
+            self.corruption_detected += 1
+            if quarantined:
+                self.corruption_quarantined += 1
         if self._scope is not None:
             self._scope.counter("corruption_detected").inc()
             if quarantined:

@@ -56,7 +56,7 @@ __all__ = [
     "CANONICAL", "CONSTANT_BYTES", "DOCUMENTED_OPS_PER_DP", "GATED_METRICS",
     "EXACT_METRICS", "STAGES", "STAGE_MAP", "STAGE_KERNELS", "Census", "Stage",
     "CountedStage", "bench_corpus", "census", "clear_stage_cache",
-    "count_step_ops", "counted_stage", "counted_stages", "fingerprint_call",
+    "count_step_ops", "counted_stage", "counted_stages", "counting", "fingerprint_call",
     "platform_config", "quiet_heap", "run_stages", "stage_names",
     "step_ops_crosscheck", "uncounted",
 ]
@@ -118,15 +118,33 @@ class Census:
 
     def __init__(self):
         self.ops: Counter = Counter()        # aten op name -> dispatches
-        self.types: Counter = Counter()      # result dtype -> results
         self.op_output_bytes = 0
         self.kernels: Dict[str, list] = {}   # kernel -> [launches, grids]
-        self.transfers = {"h2d": [0, 0], "d2h": [0, 0]}  # [count, bytes]
         self.uploads: list = []              # (seam, bytes) of each upload
+        self.op_types: Counter = Counter()   # (op, result dtype) -> results
+        self.seams: Dict[str, list] = {}     # "kind:seam" -> [count, bytes]
 
     @property
     def dispatches(self) -> int:
         return sum(self.ops.values())
+
+    @property
+    def transfers(self) -> Dict[str, list]:
+        """[count, bytes] by direction (``h2d``, ``d2h``)."""
+        out = {"h2d": [0, 0], "d2h": [0, 0]}
+        for key, (n, nbytes) in self.seams.items():
+            row = out[key.split(":", 1)[0]]
+            row[0] += n
+            row[1] += nbytes
+        return out
+
+    @property
+    def types(self) -> Counter:
+        """Results by element type."""
+        out: Counter = Counter()
+        for (_, dtype), n in self.op_types.items():
+            out[dtype] += n
+        return out
 
     def summary(self) -> dict:
         types = optext.type_census(self.types)
@@ -146,6 +164,17 @@ class Census:
             "constants": optext.uploaded_constants(self.uploads, CONSTANT_BYTES),
             "op_output_bytes": self.op_output_bytes,
         }
+
+    def records(self) -> dict:
+        """The run's records by name, which the fingerprint reduces to
+        classes: dispatches by op, results by (dtype, op) for the 64-bit
+        types, and transfers by ``kind:seam`` (``x/irlint`` reads them)."""
+        wide: Dict[str, Dict[str, int]] = {}
+        for (op, dtype), n in sorted(self.op_types.items()):
+            if dtype in optext.WIDE_TYPES:
+                wide.setdefault(dtype, {})[op] = int(n)
+        return {"ops": dict(sorted(self.ops.items())), "wide_results": wide,
+                "transfers": {k: list(v) for k, v in sorted(self.seams.items())}}
 
 
 _tls = threading.local()  # stack: the open censuses of this thread
@@ -173,7 +202,7 @@ def _on_op(name, args, kwargs, out) -> None:
         return
     c.ops[name] += 1
     for t in _results(out):
-        c.types[str(t.dtype).removeprefix("torch.")] += 1
+        c.op_types[(name, str(t.dtype).removeprefix("torch."))] += 1
         c.op_output_bytes += t.numel() * t.element_size()
 
 
@@ -182,8 +211,9 @@ def _on_count(kind, seam, n, nbytes) -> None:
     if c is None:
         return
     if kind in ("h2d", "d2h"):
-        c.transfers[kind][0] += n
-        c.transfers[kind][1] += nbytes
+        row = c.seams.setdefault(f"{kind}:{seam}", [0, 0])
+        row[0] += n
+        row[1] += nbytes
         if kind == "h2d":
             c.uploads.append((seam, nbytes))
     elif kind == "dispatch" and seam.startswith("kernel:"):
@@ -218,6 +248,11 @@ def census():
             if _users == 0:
                 devseams.OPS.remove(_on_op)
                 devseams.COUNTERS.remove(_on_count)
+
+
+def counting() -> bool:
+    """Whether this thread's ops go into an open census now."""
+    return _top() is not None
 
 
 @contextlib.contextmanager
@@ -301,6 +336,11 @@ def quiet_heap():
 def fingerprint_call(fn: Callable, args: tuple, datapoints: int, device) -> dict:
     """Fingerprint ``fn(*args)`` on ``device``: an uncounted warm-up call,
     then one counted call (see the module docstring for the fields)."""
+    return _fingerprint(fn, args, datapoints, device)[0]
+
+
+def _fingerprint(fn: Callable, args: tuple, datapoints: int, device):
+    """(the fingerprint, the counted run's :class:`Census`)."""
     dev = torch.device(device)
     fn(*args)
     _sync(dev)
@@ -329,7 +369,7 @@ def fingerprint_call(fn: Callable, args: tuple, datapoints: int, device) -> dict
                 "alias_bytes": alias, "peak_bytes": peak},
         peak_bytes_per_dp=None if peak is None else round(peak / dp, 2),
     )
-    return fp
+    return fp, c
 
 
 def platform_config(device) -> dict:
@@ -660,6 +700,7 @@ class CountedStage(NamedTuple):
     fingerprint: dict
     datapoints: int
     config: dict
+    records: dict  # Census.records() of the counted run
 
 
 _STAGE_CACHE: Dict[tuple, CountedStage] = {}
@@ -687,9 +728,9 @@ def counted_stage(name: str, device=None) -> CountedStage:
     if name not in by_name:
         raise _unknown([name])
     fn, args, datapoints, cfg = by_name[name].build(dev)
-    fp = fingerprint_call(fn, args, datapoints, dev)
+    fp, c = _fingerprint(fn, args, datapoints, dev)
     cs = CountedStage(name=name, device=str(dev), fingerprint=fp,
-                      datapoints=int(datapoints), config=dict(cfg))
+                      datapoints=int(datapoints), config=dict(cfg), records=c.records())
     _STAGE_CACHE[key] = cs
     return cs
 

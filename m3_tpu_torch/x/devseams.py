@@ -48,7 +48,7 @@ import threading
 import torch
 
 __all__ = ["TransferError", "enter", "leave", "watching", "guard", "launched",
-           "building", "COUNTERS", "BUILD_HOOKS", "OPS"]
+           "building", "COUNTERS", "BUILD_HOOKS", "OPS", "TRANSFERS"]
 
 
 class TransferError(RuntimeError):
@@ -66,6 +66,11 @@ BUILD_HOOKS: list = []
 # every aten op on any device (views and metadata queries not);
 # costwatch's census while one is open
 OPS: list = []
+# callables(direction, seam, n, nbytes, tensor) called in the watching
+# thread for every transfer, beside COUNTERS, with the tensor the copy
+# moves (an implicit count copy's: the op's input); x/irlint's residency
+# record while it runs
+TRANSFERS: list = []
 
 _tls = threading.local()  # depth, mode, quiet (inside a factory seam), guard
 _mu = threading.Lock()
@@ -211,6 +216,8 @@ def _observe(func, args, kwargs) -> None:
                 f"no_transfers() region — move it out of the guarded section "
                 f"or wrap the host boundary in tracewatch.allow_transfers()")
         _count(direction, name, n, nbytes)
+        for fn in list(TRANSFERS):
+            fn(direction, name, n, nbytes, t)
     if _counted(func, name):
         _count("dispatch", name, 1, 0)
 
@@ -263,7 +270,10 @@ def _factory(orig, seam: str, device_pos: int | None):
         finally:
             _tls.quiet = False
         if out.numel():
-            _count("h2d", seam, 1, out.numel() * out.element_size())
+            nbytes = out.numel() * out.element_size()
+            _count("h2d", seam, 1, nbytes)
+            for fn in list(TRANSFERS):
+                fn("h2d", seam, 1, nbytes, out)
         return out
 
     wrapped.__wrapped__ = orig

@@ -35,6 +35,16 @@ casts, concatenations and host↔device transfers), ``factory`` (fresh
 tensors), ``elementwise`` and ``other`` (anything not listed; pinned by
 tests so that a new op shows).  Hand-kernel launches are the eighth
 class, ``kernel``, counted from their own seam.
+
+Across the classes, :data:`HOST_SYNC_OPS` names the ops that read a
+value back to the host inside the op on a card: a scalar read
+(``_local_scalar_dense``: ``.item()``, ``int()``, ``bool()`` of a
+tensor) and the ops whose output shape depends on the data, which copy
+a count to the host before they can allocate (``nonzero``,
+``masked_select``, ``unique``, ``repeat_interleave``, ``bincount``...).
+``x/irlint``'s ``transfer-free`` rule counts them by name in a stage's
+run, on the CPU as on the card; a boolean-mask ``index`` syncs too, but
+only its operands tell, so it is counted from the card's transfers.
 """
 
 from __future__ import annotations
@@ -45,7 +55,7 @@ from typing import Dict, Iterable, List, Mapping, Tuple
 __all__ = [
     "OP_RE", "SEAM_RE", "OP_CLASSES", "WIDE_TYPES", "op_class", "parse_op",
     "parse_seam", "op_histogram", "type_census", "wide_count",
-    "kernel_census", "uploaded_constants",
+    "kernel_census", "uploaded_constants", "HOST_SYNC_OPS", "host_syncs",
 ]
 
 # `namespace::base` with an optional in-place `_`; group 3 is that `_`
@@ -185,3 +195,21 @@ def uploaded_constants(uploads: Iterable[Tuple[str, int]],
            if int(nb) >= min_bytes]
     out.sort(key=lambda c: (-c["bytes"], c["seam"]))
     return out
+
+
+# ops that read a value back to the host inside the op on a card (see the
+# module docstring), by base name
+HOST_SYNC_OPS = frozenset((
+    "_local_scalar_dense", "is_nonzero", "nonzero", "masked_select", "_unique",
+    "_unique2", "unique_consecutive", "unique_dim", "repeat_interleave",
+    "bincount", "histc", "equal", "allclose",
+))
+
+
+def host_syncs(ops: Mapping[str, int]) -> Dict[str, int]:
+    """The host-syncing ops of a run's ops (name -> count), by name."""
+    out = {}
+    for name, n in ops.items():
+        if parse_op(name)[1] in HOST_SYNC_OPS and int(n):
+            out[name] = int(n)
+    return dict(sorted(out.items()))

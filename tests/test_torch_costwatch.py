@@ -308,3 +308,13 @@ def test_uncounted_scope_hides_a_checkers_work():
             devseams.launched("place_words", 1)
         a - 1
     assert c.dispatches == 2 and not c.kernels
+
+
+def test_counting_tells_a_counted_run_apart():
+    assert not cw.counting()
+    with cw.census():
+        assert cw.counting()
+        with cw.uncounted():
+            assert not cw.counting()
+        assert cw.counting()
+    assert not cw.counting()

@@ -52,7 +52,14 @@ def test_every_module_imports_with_jax_blocked():
               # the measuring tools
               "x.optext", "x.costwatch", "tools.costs", "tools.decode_profile",
               "tools.card_bisect", "native.aggproxy", "comparator",
-              "comparator.naive_promql", "comparator.harness"):
+              "comparator.naive_promql", "comparator.harness",
+              # the static and IR gates
+              "x.lint", "x.lint.core", "x.lint.locks", "x.lint.wirecheck",
+              "x.lint.faultcov", "x.lint.resources", "x.lint.corruption",
+              "x.lint.placement", "x.lint.deadline_aware", "x.lint.metrics_rule",
+              "x.lint.actuator_rule", "x.lint.capacity_rule", "x.lint.purity",
+              "x.lint.torchlint", "x.lint.devguard_rule", "x.lint.registry_rule",
+              "x.irlint"):
         assert f"m3_tpu_torch.{m}" in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

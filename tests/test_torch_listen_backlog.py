@@ -4,11 +4,12 @@ package's, on the CPU.
 Every server the two packages run (the node's HTTP API, the admin API,
 the dbnode RPC server, the KV service) is a ``socketserver`` server with
 its default ``request_queue_size`` of 5.  Bound but not yet accepting,
-each takes the same number of twelve concurrent connects in both
-packages; the rest wait for the kernel's SYN retry, and once the server
-accepts, every waiting client is served.  A client that arrives while
-the backlog is full waits: the two packages behave alike here, and
-neither adds a retry."""
+each takes the same number of twelve connects in both packages, dialled
+one at a time so that which dial finds the accept queue full does not
+depend on thread scheduling; the rest wait for the kernel's SYN retry,
+and once the server accepts, every waiting client is served.  A client
+that arrives while the backlog is full waits: the two packages behave
+alike here, and neither adds a retry."""
 
 import socket
 import threading
@@ -78,19 +79,15 @@ def test_full_backlog_behaves_alike(tmp_path, kind):
         try:
             assert srv.request_queue_size == 5
             out = {}
-            threads = [threading.Thread(target=_dial, args=(srv.server_address[1], out, i))
-                       for i in range(DIALS)]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=10)
-            got[side] = sorted(out.values())
+            for i in range(DIALS):  # in order: each dial sees the queue the last left
+                _dial(srv.server_address[1], out, i)
+            got[side] = [out[i] for i in range(DIALS)]
         finally:
             srv.server_close()
             if db is not None:
                 db.close()
-    assert got["torch"] == got["jax"]
-    assert "connected" in got["torch"]
+    assert got["torch"] == got["jax"], got
+    assert "connected" in got["torch"], got
 
 
 def test_waiting_clients_are_served_once_the_server_accepts(tmp_path):
