@@ -442,8 +442,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernel #1 launch bit-equal to plain; (d) the
    five seeded regressions, each flipping its rule on the card, and a
    baseline pinned to another card or torch refused.
+27. the ops CLI and the distributed tests, in a lane of their own: (a)
+   ``dtest/agent.serve_agent_background`` and one node on the card driven
+   through ``AgentClient`` (setup, start, status, a write, kill, start
+   with the write read back, logs, teardown), each answer checked; (b)
+   ``dtest/soak.run_soak`` on the card (every node ``device=None``) at
+   the reference's default shape (3 nodes at rf 3 and a spare, 8 shards
+   of 2^18 slots, batches of 10,000, churn 0.02, the 200-series query
+   corpus, the 2,000 x 3 historical corpus, the full timeline healthy ->
+   wire_faults -> device_faults -> sigkill -> corrupt -> replace ->
+   recovered, selfmon and the controller on) with ``series`` cut 10^6 ->
+   5 x 10^4 and each window shrunk in proportion to at least 10 s (PERF.md
+   §4): zero acked loss with both digests equal, every chaos event ok, a
+   quiet controller, the SLO record, each first node's encode calls
+   above 0 and refusals only in the device window and only on node 0;
+   per phase the driver and fleet p50/p99, samples/s, the verify's
+   seconds and each node's ``device_mem_peak_bytes`` printed, the
+   soak's artifact and node logs kept under ``build/phase27/``; (c)
+   ``tools/cli`` over the soak's kept node roots (``read_data_files``,
+   ``read_index_files``, ``read_commitlog``, ``verify_data_files``,
+   ``scrub --inventory``: the only corrupt volume the corrupt event's, in
+   quarantine), every segment decoded on the card with ``decode_batch``
+   equal to the CLI's scalar decode and the historical corpus to the
+   ledger's values, then re-encoded with ``encode_batch`` at its block
+   start into the same bytes, each kernel #1 and #2 launch bit-equal to
+   plain; (d) ``cli lint --json`` and ``cli hops --check`` on the card
+   against ``m3_tpu_torch/tools/hops_baseline_cuda.json``, both green.
+   The lane runs (a), then waits for phase 23 (b) to pass in its lane
+   before (d), (b) and (c): they load the host, and 23 (b)'s remote
+   fetches time out at 30 s.
 
-Order.  Phases 16, 18-19 and 22-26 run in lanes: spawned processes of
+Order.  Phases 16, 18-19 and 22-27 run in lanes: spawned processes of
 their own, started with the script (phase 18's request builders start in
 its lane then), released after phase 11 and joined after phase 17.  The main
 process meanwhile runs phases 12-15, 20 and 17, in that order; phase 21
@@ -473,7 +502,8 @@ main paths: kernels #3 and #4 in (a)'s f64 step, #1 in (c)'s encode,
 and ``measure_launches`` (phase 25's (a)-(d): all four in (a)'s census,
 #1 and #2 in (b)'s profile and (c)'s bisector), and ``gate_launches``
 (phase 26's (b)-(c): all four in (b)'s census, #1 in the residency
-passes' encodes);
+passes' encodes), and ``dtest_launches`` (phase 27 (c): #1 in the
+re-encode, #2 in the decode of the soak's segments; none of #3-#4);
 ``shared_card`` names the phases whose kernel times were taken while a
 lane ran beside them.
 The last three lines are a JSON line of kernel records, the card's name
@@ -6769,16 +6799,20 @@ def front_door_part(part, seed: int, dev) -> dict:
             "max_abs_err": out.pop("max_abs_err", {})}
 
 
-def federation_lane(seed: int, card: str) -> dict:
+def federation_lane(seed: int, card: str, done23b=None) -> dict:
     """Phase 23 (b) in a lane of its own (``front_door_part(federation)``),
     then phase 24 (``instruments_phase``) with every kernel's launches
-    counted from 0 over its path."""
+    counted from 0 over its path.  ``done23b`` (an event) is set once
+    phase 23 (b) has passed: its remote fetches time out at 30 s, so
+    phase 27's host-heavy parts start only then."""
     import torch
 
     torch.set_num_threads(LANE_THREADS)
     lane_wait()
     dev = torch.device("cuda")
     fed = front_door_part(federation, seed, dev)
+    if done23b is not None:
+        done23b.set()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     inst = instruments_phase(seed, dev, card)
@@ -8229,6 +8263,453 @@ def gates_records(kernels: list, got: dict, card: str) -> None:
     log(f"phase26 [{card}] launches on its path: {got['launches']}")
 
 
+# ---- phase 27: the ops CLI and the distributed tests ----
+
+SOAK_SERIES = 50_000  # of the reference's 10^6 (PERF.md §4)
+SOAK_WINDOW_FLOOR_S = 10.0  # each phase window, shrunk in proportion, at least this
+AGENT_NODE = """
+db:
+  root: {root}
+  namespaces:
+    default: {{num_shards: 2}}
+coordinator: {{listen_port: 0}}
+mediator: {{enabled: false}}
+"""
+
+
+def soak_config():
+    """The reference's default soak shape (3 nodes at rf 3 and a spare,
+    8 shards of 2^18 slots, batches of 10,000, churn 0.02, the 200-series
+    query corpus, the 2,000 x 3 historical corpus, the full timeline,
+    selfmon and the controller on) with its depth cut: ``series`` to
+    ``SOAK_SERIES`` and each phase window shrunk in the same proportion,
+    to at least ``SOAK_WINDOW_FLOOR_S``; ``max_sweeps`` grows by the
+    series cut, so the cap bounds the reference's samples and ends no
+    load before the timeline has run.  Returns (config, the cuts)."""
+    from m3_tpu_torch.dtest.soak import SoakConfig
+
+    base = SoakConfig()
+    scale = SOAK_SERIES / base.series
+    cuts = {"series": SOAK_SERIES,
+            "max_sweeps": -(-base.max_sweeps * base.series // SOAK_SERIES)}
+    for key in ("t_healthy", "t_wire", "t_device", "t_kill", "t_corrupt"):
+        cuts[key] = max(SOAK_WINDOW_FLOOR_S, getattr(base, key) * scale)
+    return SoakConfig(**cuts), {k: (getattr(base, k), v) for k, v in cuts.items()}
+
+
+def cli_run(argv, keep: int | None = None) -> tuple:
+    """``m3_tpu_torch.tools.cli.main(argv)`` with its standard output
+    parsed line by line: (rc, the lines (the first ``keep`` of them, all
+    when None), how many lines there were)."""
+    import contextlib
+    import io
+
+    from m3_tpu_torch.tools import cli
+
+    class Sink(io.TextIOBase):
+        def __init__(self):
+            self.n, self.lines, self.part = 0, [], ""
+
+        def write(self, s):
+            self.part += s
+            *done, self.part = self.part.split("\n")
+            for line in done:
+                if line.strip():
+                    self.n += 1
+                    if keep is None or len(self.lines) < keep:
+                        self.lines.append(json.loads(line))
+            return len(s)
+
+    sink = Sink()
+    with contextlib.redirect_stdout(sink):
+        rc = cli.main(argv)
+    return rc, sink.lines, sink.n
+
+
+def agent_on_card(workdir: Path, card: str) -> dict:
+    """(a) ``serve_agent_background`` and one node on the card driven
+    through ``AgentClient``: setup, start, status, a write, kill, start
+    (the write back from the commit log), logs, teardown; each answer
+    checked."""
+    import urllib.request
+
+    from m3_tpu_torch.dtest.agent import AgentClient, serve_agent_background
+
+    t0 = time.perf_counter()
+    srv = serve_agent_background(str(workdir / "agent"))  # device None: the card
+    client = AgentClient(srv.server_address)
+    walls = {}
+    try:
+        root = workdir / "agent" / "n1" / "data"
+        assert client.setup("n1", AGENT_NODE.format(root=root)) == {"name": "n1",
+                                                                 "root": str(root)}
+        t = time.perf_counter()
+        st = client.start("n1")
+        walls["start_s"] = time.perf_counter() - t
+        assert st["alive"] and st["port"] and st["device"].startswith("cuda"), st
+        assert client.status()["nodes"]["n1"]["alive"]
+        ts = STORE_START // SEC + 10
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{st['port']}/api/v1/json/write",
+            data=json.dumps([{"tags": {"__name__": "agent27"}, "timestamp": ts,
+                              "value": 27.5}]).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            assert json.load(r)["written"] == 1
+        assert client.kill("n1") == {"name": "n1", "killed": True}
+        assert not client.status()["nodes"]["n1"]["alive"]
+        t = time.perf_counter()
+        st2 = client.start("n1")
+        walls["restart_s"] = time.perf_counter() - t
+        assert st2["alive"] and st2["device"].startswith("cuda"), st2
+        url = (f"http://127.0.0.1:{st2['port']}/api/v1/query_range?query=agent27"
+               f"&start={ts - 10}&end={ts + 10}&step=10s")
+        with urllib.request.urlopen(url, timeout=60) as r:
+            res = json.load(r)["data"]["result"]
+        assert res and [ts, "27.5"] in res[0]["values"], res
+        logs = client.logs("n1", tail=1 << 16)
+        assert b"node up" in logs and b"'device': 'cuda" in logs, logs[-500:]
+        assert client.teardown("n1") == {"name": "n1", "torn_down": True}
+        assert "n1" not in client.status()["nodes"] and not (workdir / "agent" / "n1").exists()
+    finally:
+        srv.agent.close()
+        srv.shutdown()
+        srv.server_close()
+    walls["s"] = time.perf_counter() - t0
+    log(f"phase27 (a) [{card}] agent: setup, start ({walls['start_s']:.1f} s), status, write, "
+        f"kill, start ({walls['restart_s']:.1f} s; the write read back), logs, teardown: "
+        f"every answer as expected; {walls['s']:.1f} s")
+    return walls
+
+
+def soak_on_card(workdir: Path, card: str) -> dict:
+    """(b) The reference's default soak on the card (``run_soak``, every
+    node ``device=None``) at ``soak_config()``'s cut: zero acked loss with
+    both digests equal, every chaos event ok, a quiet controller, the SLO
+    record, and each node's device boundary (encode calls, refusals only
+    in the device window and only on node 0).  The node roots are kept
+    for (c)."""
+    from m3_tpu_torch.dtest.soak import build_timeline, run_soak
+
+    cfg, cuts = soak_config()
+    timeline = build_timeline(cfg)
+    log(f"phase27 (b) [{card}] soak cuts (reference -> here): " + json.dumps(cuts) +
+        f"; nodes {cfg.nodes} (rf {cfg.rf}) + spare, shards {cfg.num_shards}, slot capacity "
+        f"{cfg.slot_capacity}, batch {cfg.batch}, churn {cfg.churn}, query corpus "
+        f"{cfg.query_corpus}, historical {cfg.hist_series} x {cfg.hist_points}; timeline "
+        f"{[e.arg for e in timeline if e.action == 'phase']}")
+    t0 = time.perf_counter()
+    art = run_soak(cfg, workdir=str(workdir / "soak"), keep_workdir=True,
+                   log=lambda m: log(f"phase27 (b) {m}"))
+    wall = time.perf_counter() - t0
+    out = ROOT / "build" / "phase27"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "soak.json").write_text(json.dumps(art, indent=1))
+    for k in range(cfg.nodes + 1):  # each node's log, for the record
+        node_log = workdir / "soak" / f"n{k}" / "data" / "node.log"
+        if node_log.exists():
+            (out / f"n{k}.log").write_bytes(node_log.read_bytes()[-(4 << 20):])
+    v = art["verdict"]
+    assert v["zero_acked_loss"] and v["missing"] == 0 and v["mismatched"] == 0, v
+    assert v["ledger_sha256"] == v["recovered_sha256"], v
+    assert v["active_series"] >= SOAK_SERIES, v
+    bad = [e for e in art["chaos"] if not e["ok"]]
+    assert not bad, bad
+    fired = {e["action"] for e in art["chaos"]}
+    assert {"wire_fault", "device_fault", "kill", "restart", "corrupt", "replace"} <= fired, fired
+    assert v["controller_quiet"] and v["controller_relaxed"], art.get("controller")
+    assert v["slo_recorded"], art.get("selfmon")
+    names = [p["name"] for p in art["phases"]]
+    assert names == ["setup", "healthy", "wire_faults", "device_faults", "sigkill", "corrupt",
+                     "replace", "recovered"], names
+    nodes = art["device"]["nodes"]
+    for inst in (f"i{k}" for k in range(cfg.nodes)):
+        rec = nodes[inst]
+        assert rec["encode_calls"] > 0, (inst, rec)
+        errs = {p for p, n in rec["errors_by_phase"].items() if n}
+        assert errs == ({"device_faults"} if inst == "i0" else set()), (inst, rec)
+    for inst, rec in nodes.items():
+        assert not any(rec["errors_by_phase"].get(p) for p in names if p != "device_faults"), \
+            (inst, rec)
+    for p in art["phases"]:
+        fi, fq = p.get("fleet_ingest", {}), p.get("fleet_query", {})
+        log(f"phase27 (b) [{card}] {p['name']}: {p['duration_s']} s, acked "
+            f"{p['ingest']['acked_samples']} samples ({p['ingest']['samples_per_s']} "
+            f"samples/s), failed batches {p['ingest']['failed_batches']}; ingest driver "
+            f"p50/p99 {p['ingest']['driver_p50_ms']}/{p['ingest']['driver_p99_ms']} ms, fleet "
+            f"{fi.get('quantiles')} s; query ok/shed/err {p['query']['ok']}/"
+            f"{p['query']['shed']}/{p['query']['errors']}, driver p50/p99 "
+            f"{p['query']['driver_p50_ms']}/{p['query']['driver_p99_ms']} ms, fleet "
+            f"{fq.get('quantiles')} s; counters {json.dumps(p.get('counters'))}")
+    peaks = {inst: rec["mem_peak_bytes"] for inst, rec in nodes.items()}
+    log(f"phase27 (b) [{card}] verdict: zero_acked_loss {v['zero_acked_loss']}, acked "
+        f"{v['acked_samples']} samples over {v['active_series']} series, missing "
+        f"{v['missing']}, mismatched {v['mismatched']}, unacked extras {v['unacked_extras']}, "
+        f"digests equal ({v['ledger_sha256'][:16]}), verify {v['verify_seconds']} s; sweeps "
+        f"{art['sweeps_completed']}; controller actions {art['controller']['actions_total']}; "
+        f"SLO verdicts {len(art['selfmon']['verdicts'])}")
+    log(f"phase27 (b) [{card}] each node's device: " + json.dumps(
+        {i: {"encode_calls": r["encode_calls"], "errors_by_phase": {
+            p: n for p, n in r["errors_by_phase"].items() if n},
+            "error_stages": r["error_stages"]} for i, r in nodes.items()}))
+    log(f"phase27 (b) [{card}] device_mem_peak_bytes by node: {json.dumps(peaks)}, sum "
+        f"{sum(peaks.values()) / 2**30:.3f} GiB; soak wall {wall:.1f} s (its own {art['wall_s']} s)")
+    return {"wall_s": wall, "verify_s": v["verify_seconds"], "acked": v["acked_samples"],
+            "series": v["active_series"], "peaks": peaks, "cluster_log": art["cluster_log"],
+            "workdir": str(workdir / "soak"), "nodes": cfg.nodes + 1,
+            "hist": (cfg.hist_series, cfg.hist_points)}
+
+
+def cli_on_soak(soak: dict, dev, card: str) -> dict:
+    """(c) The CLI over the soak's kept node roots: ``read_data_files``,
+    ``read_index_files``, ``read_commitlog``, ``verify_data_files`` and
+    ``scrub --inventory`` (the only corrupt volume the one the corrupt
+    event damaged, in quarantine); then every segment decoded on the card
+    with ``decode_batch`` (each kernel #2 launch bit-equal to plain)
+    equal to the CLI's scalar decode, the historical corpus equal to the
+    ledger's values, and re-encoded on the card with ``encode_batch`` at
+    its block start (each kernel #1 launch bit-equal to plain) into the
+    same bytes."""
+    import re
+
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.encoding.m3tsz import encode_series
+    from m3_tpu_torch.parallel import decode_gather, encode_place
+    from m3_tpu_torch.parallel import segment_ingest as si
+    from m3_tpu_torch.persist.fs import DataFileSetReader, list_filesets
+
+    t0 = time.perf_counter()
+    wd = Path(soak["workdir"])
+    roots = [wd / f"n{k}" / "data" for k in range(soak["nodes"])]
+    m = next(m for line in soak["cluster_log"]
+             for m in [re.search(r"corrupted (data/(\S+)/(\d+)/fileset-(\d+)-\d+-data\.db) "
+                                 r"on node (\d+)", line)] if m)
+    victim, victim_node = m.group(1), int(m.group(5))
+    victim_block = (m.group(2), int(m.group(3)), int(m.group(4)))  # (ns, shard, block)
+    out: dict = {"nodes": {}}
+    scalar = {}  # (node, ns, shard, block, volume, id) -> points of the CLI's decode
+    for k, root in enumerate(roots):
+        rec = {}
+        rc, lines, n = cli_run(["read_data_files", str(root)])
+        assert rc == 0
+        rec["data_series"] = n
+        for ln in lines:
+            scalar[(k, ln["namespace"], ln["shard"], ln["block_start"], ln["volume"],
+                    ln["id"])] = ln["points"]
+        rc, lines, n = cli_run(["read_index_files", str(root)])
+        assert rc == 0 and all(ln["num_docs"] >= 0 for ln in lines)
+        rec["index_segments"] = n
+        rc, lines, n = cli_run(["read_commitlog", str(root)], keep=1000)
+        assert rc == 0 and all(set(ln) == {"log", "namespace", "id", "timestamp", "value"}
+                               for ln in lines)
+        rec["commitlog_entries"] = n
+        rc, lines, n = cli_run(["verify_data_files", str(root)])
+        assert rc == 0 and all(ln["ok"] for ln in lines), [ln for ln in lines if not ln["ok"]]
+        rec["volumes_ok"] = n
+        rc, lines, n = cli_run(["scrub", str(root), "--inventory"])
+        assert rc == 0 and lines[-1]["corrupt"] == 0, lines[-1]
+        inv = lines[:-1]
+        if k == victim_node:
+            assert len(inv) == 1 and inv[0]["path"].endswith(victim), (inv, victim)
+            assert Path(inv[0]["dir"]).is_dir()
+            # whether the scrub's peer repair wrote the block back (its
+            # volume then verified with the rest)
+            rec["victim_rewritten"] = (root / victim).exists()
+        else:
+            assert inv == [], inv
+        rec["quarantined"] = len(inv)
+        out["nodes"][f"i{k}"] = rec
+    log(f"phase27 (c) [{card}] CLI over the kept roots: " + json.dumps(out["nodes"]) +
+        f"; the corrupt event's volume ({victim} on node {victim_node}) is the only one in "
+        "quarantine, every other volume verifies")
+    t_cli = time.perf_counter() - t0
+
+    # the same segments on the card
+    for name in si.KERNELS:
+        si.launches[name] = 0
+    encode_place.launches = decode_gather.launches = 0
+    hist_n, hist_pts = soak["hist"]
+    n_segs = n_pts = n_hist = same_bytes = 0
+    misses, partial, full = [], [], set()
+    with KernelCheck(mt, "extract_fields64_t", decode_gather.extract_fields64_t_plain) as ext, \
+            KernelCheck(mt, "place_words", encode_place.place_words_plain) as place:
+        for k, root in enumerate(roots):
+            groups: dict = {}
+            for ns in sorted(p.name for p in (root / "data").iterdir() if p.is_dir()):
+                for sh in sorted(int(p.name) for p in (root / "data" / ns).iterdir()
+                                 if p.name.isdigit()):
+                    for bs, vol in list_filesets(str(root), ns, sh):
+                        r = DataFileSetReader(str(root), ns, sh, bs, vol)
+                        for sid, seg in r.read_all():
+                            groups.setdefault((ns, bs), []).append((sh, vol, sid, seg))
+                        r.close()
+            for (ns, bs), rows in sorted(groups.items()):
+                want = [scalar[(k, ns, sh, bs, vol, sid.decode(errors="replace"))]
+                        for sh, vol, sid, seg in rows]
+                T = max(1, max(len(w) for w in want))
+                d_ts, d_vals, counts, dfb = mt.decode_batch([seg for *_, seg in rows], T,
+                                                            device=dev)
+                assert not dfb.any(), (ns, bs)
+                for r, w in enumerate(want):
+                    c = int(counts[r])
+                    assert c == len(w)
+                    assert d_ts[r, :c].tolist() == [p[0] for p in w], (ns, rows[r][2])
+                    assert np.array_equal(d_vals[r, :c], np.asarray([p[1] for p in w])), \
+                        (ns, rows[r][2])
+                n_segs += len(rows)
+                n_pts += int(counts.sum())
+                hist = [r for r, row in enumerate(rows) if row[2].startswith(b"soakhist.")]
+                if not hist:
+                    continue
+                # the ledger's historical values: series i holds i + p*1000 at
+                # block + (p+1) s (dtest/soak.py _write_historical).  Only the
+                # corrupt event's (node, shard, block) may hold an older volume
+                # alone, which lacks the later cold writes (ROADMAP Queue C):
+                # its points are a subset; every other copy is whole
+                for r in hist:
+                    i = int(rows[r][2][len(b"soakhist."):])
+                    c = int(counts[r])
+                    pts = (d_ts[r, :c] - bs) // SEC - 1
+                    assert 0 < c <= hist_pts and ((pts >= 0) & (pts < hist_pts)).all()
+                    assert np.array_equal(d_ts[r, :c], bs + (pts + 1) * SEC), rows[r][2]
+                    assert np.array_equal(d_vals[r, :c], i + 1000.0 * pts), rows[r][2]
+                    if c == hist_pts:
+                        full.add(i)
+                    else:
+                        partial.append((k, ns, rows[r][0], bs, rows[r][1], i, c))
+                n_hist += len(hist)
+                cnt = counts[hist].astype(np.int64)
+                streams, fb = mt.encode_batch(d_ts[hist], d_vals[hist],
+                                              np.full(len(hist), bs, np.int64), counts=cnt,
+                                              fit_words=True, device=dev)
+                for j, r in enumerate(hist):
+                    c = int(cnt[j])
+                    got = (encode_series(list(zip(d_ts[r, :c].tolist(), d_vals[r, :c].tolist())),
+                                         start=bs) if fb[j] else streams[j])
+                    if got == rows[r][3]:
+                        same_bytes += 1
+                    elif len(misses) < 5:
+                        misses.append((k, ns, bs, rows[r][2].decode(), rows[r][3].hex(), got.hex()))
+    launches = {"place_words": encode_place.launches,
+                "extract_fields64_t": decode_gather.launches, **si.launches}
+    log(f"phase27 (c) [{card}] decode_batch on the card: {n_segs} segments, {n_pts} points, "
+        f"equal to the CLI's scalar decode; {n_hist} historical series equal to the ledger; "
+        f"kernel #2 {ext.calls} launches, kernel #1 {place.calls}, each bit-equal to plain")
+    log(f"phase27 (c) [{card}] re-encode at the block start: {same_bytes} of {n_hist} "
+        f"historical segments byte-equal" + (f"; misses {misses}" if misses else ""))
+    assert not misses, misses
+    # every historical series whole on at least one root (the soak's
+    # verdict read each point at Majority), and every partial copy in the
+    # corrupt event's block on its node
+    assert full == set(range(hist_n)), hist_n - len(full)
+    stray = [p for p in partial if (p[0], *p[1:4]) != (victim_node, *victim_block)]
+    assert not stray, stray[:5]
+    vols = sorted({p[4] for p in partial})
+    log(f"phase27 (c) [{card}] historical copies that hold part of the series: "
+        f"{len(partial)}, all on node {victim_node} in the corrupt event's (namespace, shard, "
+        f"block) {victim_block} (volumes {vols}); every other copy whole, every series whole "
+        f"on at least one root")
+    assert launches["place_words"] > 0 and launches["extract_fields64_t"] > 0, launches
+    assert launches["segment_ingest"] == launches["segment_minmax"] == 0, launches
+    assert place.calls == launches["place_words"] and ext.calls == launches["extract_fields64_t"]
+    return {"launches": launches, "s": time.perf_counter() - t0, "cli_s": t_cli,
+            "max_abs_err": {"place_words": place.err, "extract_fields64_t": ext.err,
+                            "segment_ingest": 0, "segment_minmax": 0}}
+
+
+def gates_cli_on_card(card: str) -> dict:
+    """(d) ``cli lint --json`` and ``cli hops --check`` on the card at the
+    pinned corpus against ``tools/hops_baseline_cuda.json``: both green."""
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.parallel import encode_place
+
+    t0 = time.perf_counter()
+    rc, lines, _ = cli_run(["lint", "--json"])
+    assert rc == 0 and lines[0]["ok"] and lines[0]["findings"] == 0, lines
+    lint_doc = lines[0]
+    t_lint = time.perf_counter() - t0
+    with KernelCheck(mt, "place_words", encode_place.place_words_plain) as place:
+        rc, lines, _ = cli_run(["hops", "--check"])
+    chk = lines[0]["hops_check"]
+    assert rc == 0 and chk["ok"] and chk["baseline"].endswith("hops_baseline_cuda.json"), chk
+    pipe = chk["pipeline"]
+    log(f"phase27 (d) [{card}] cli lint --json: ok, {lint_doc['findings']} findings, baseline "
+        f"{lint_doc['baseline']} ({t_lint:.1f} s); "
+        f"cli hops --check: green against hops_baseline_cuda.json (steady: "
+        f"{pipe['transfers_steady']} transfers, {pipe['transfer_bytes_steady']} B, "
+        f"{pipe['dispatches_steady']} dispatches, {pipe['compiles_steady']} builds; "
+        f"{pipe['samples_per_s_wire_to_bytes']:.0f} samples/s uncounted); kernel #1 "
+        f"{place.calls} launches, each bit-equal to plain; {time.perf_counter() - t0:.1f} s")
+    return {"lint_s": t_lint, "s": time.perf_counter() - t0, "hops_place_launches": place.calls,
+            "place_err": place.err}
+
+
+def dtest_phase(seed: int, dev, card: str, after_agent=None) -> dict:
+    """Phase 27: (a) the agent, then (after ``after_agent()``, when given)
+    (d) the lint and hops gates, (b) the soak and (c) the CLI over its
+    roots; each part's wall.  Kernel launches are counted from 0 over
+    (c), the phase's path in this process (the soak's nodes launch
+    theirs in their own processes)."""
+    import torch
+
+    workdir = store_root("dtest27")
+    walls, parts = {}, {}
+    t0 = time.perf_counter()
+    parts["a"] = agent_on_card(workdir, card)
+    walls["a"] = time.perf_counter() - t0
+    if after_agent is not None:
+        t0 = time.perf_counter()
+        after_agent()
+        walls["wait"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parts["d"] = gates_cli_on_card(card)
+    walls["d"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    parts["b"] = soak_on_card(workdir, card)
+    walls["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parts["c"] = cli_on_soak(parts["b"], dev, card)
+    walls["c"] = time.perf_counter() - t0
+    log(f"phase27 [{card}] part walls (s): {json.dumps(walls)}")
+    err = dict(parts["c"]["max_abs_err"])
+    err["place_words"] = max(err["place_words"], parts["d"]["place_err"])
+    return {"walls_s": walls, "launches": parts["c"]["launches"], "max_abs_err": err,
+            "peaks": parts["b"]["peaks"]}
+
+
+def dtest_lane(seed: int, card: str, done23b) -> dict:
+    """Phase 27 in a lane of its own; after (a) it waits for ``done23b``
+    (phase 23 (b) passed in its lane)."""
+    import torch
+
+    torch.set_num_threads(LANE_THREADS)
+    lane_wait()
+
+    def after_23b():
+        import os
+
+        while not done23b.wait(2.0):
+            if os.getppid() != _LANE["ppid"]:
+                raise SystemExit("chip_smoke: the main process is gone")
+
+    t0 = time.perf_counter()
+    out = dtest_phase(seed, torch.device("cuda"), card, after_agent=after_23b)
+    log(f"phase27 done in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def dtest_records(kernels: list, got: dict, card: str) -> None:
+    """Phase 27's result into the kernel records: ``dtest_launches`` ((c)'s
+    launches: #1 and #2 above 0, #3 and #4 none) and its largest
+    difference from the plain versions."""
+    for k in kernels:
+        name = k["name"]
+        k["dtest_launches"] = got["launches"][name]
+        k["max_abs_err"] = max(k["max_abs_err"], got["max_abs_err"][name])
+    log(f"phase27 [{card}] launches on its path: {got['launches']}")
+
+
 # ---- lanes: phases in processes of their own, beside the main one ----
 
 KERNEL_NAMES = ("place_words", "extract_fields64_t", "segment_ingest", "segment_minmax")
@@ -8368,11 +8849,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
 
+    import multiprocessing
+
     import m3_tpu_torch  # noqa: F401  (without the port the script ends here)
 
     card = card_line()
     t_start = time.perf_counter()
-    # phases 16, 18-19 and 22-26 run in lanes, processes of their own started
+    # phases 16, 18-19 and 22-27 run in lanes, processes of their own started
     # now and released after phase 11, beside phases 12-15, 20 and 17 in
     # this one (PERF.md §4)
     lanes = []
@@ -8381,8 +8864,13 @@ def main() -> int:
         lanes.append(Lane("phases18-19", node_tier_lane, args.seed, card))
         lanes.append(Lane("phases22-23a-25", device_control_lane, args.seed, card,
                           env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}))
-        lanes.append(Lane("phases23b-24", federation_lane, args.seed, card))
+        done23b = multiprocessing.get_context("spawn").Event()
+        lanes.append(Lane("phases23b-24", federation_lane, args.seed, card, done23b))
         lanes.append(Lane("phase26", gates_lane, args.seed, card))
+        # the soak's node processes inherit the lane's environment: two
+        # torch threads each, beside the other lanes
+        lanes.append(Lane("phase27", dtest_lane, args.seed, card, done23b,
+                          env={"OMP_NUM_THREADS": str(LANE_THREADS)}))
         return run(args, lanes, card, t_start)
     finally:
         for lane in lanes:
@@ -8390,7 +8878,7 @@ def main() -> int:
 
 
 def run(args, lanes: list, card: str, t_start: float) -> int:
-    """Phases 1-26 (see the module docstring); ``lanes`` wait for their
+    """Phases 1-27 (see the module docstring); ``lanes`` wait for their
     release after phase 11."""
     import torch
 
@@ -8652,7 +9140,7 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
     del packed_t
     torch.cuda.empty_cache()
 
-    # ---- the lanes start: phases 16, 18-19 and 22-26 beside 12-15, 20, 17 ----
+    # ---- the lanes start: phases 16, 18-19 and 22-27 beside 12-15, 20, 17 ----
     for lane in lanes:
         lane.release()
     spans = {}  # phase -> (process, wall start, wall end)
@@ -8715,8 +9203,8 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
     spans["phase17"] = ("main", w0, time.time())
     torch.cuda.empty_cache()
 
-    # ---- the lanes end: phase 16, phases 18-19, phases 22-25, phase 26 ----
-    ds_lane, node_lane, ctl_lane, fed_lane, gate_lane = lanes
+    # ---- the lanes end: phase 16, phases 18-19, phases 22-25, phases 26 and 27 ----
+    ds_lane, node_lane, ctl_lane, fed_lane, gate_lane, soak_lane = lanes
     downsample_records(kernels, ds_lane.result(), fwd, card)
     merge_records(kernels, node_lane.result()["records"])
     ctl = ctl_lane.result()
@@ -8726,6 +9214,7 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
     instrument_records(kernels, fed["instruments"], card)
     measuring_records(kernels, ctl["measure"], card)
     gates_records(kernels, gate_lane.result(), card)
+    dtest_records(kernels, soak_lane.result(), card)
     for lane in lanes:
         spans[lane.name] = (lane.name, *lane.span)
     shared = shared_phases(spans)

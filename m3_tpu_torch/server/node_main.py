@@ -5,7 +5,10 @@ Equivalent of the reference's service mains
 (`src/cmd/services/m3dbnode/main/main.go` — parse config, server.Run,
 block on signals).  Writes a `<root>/node.json` status file (pid, HTTP,
 RPC and admin ports) once serving, so harnesses can discover the ephemeral port;
-SIGTERM drains (final flush + snapshot) and exits 0.
+SIGTERM drains (final flush + snapshot, then a bounded wait for LEAVING
+shards to cut over) and exits 0.  ``--drain-timeout S`` bounds that wait
+(60 s by default): the reference reads ``M3_DRAIN_TIMEOUT_S`` from the
+environment, and the port reads no environment, so it is an argument.
 
 The node runs on the CUDA card and raises without one; ``--device cpu``
 asks for the CPU (the tests do).  The config is YAML, or JSON where
@@ -30,6 +33,10 @@ def main(argv=None) -> int:
     ap.add_argument("config", help="node config (YAML, or JSON)")
     ap.add_argument("--device", default=None,
                     help="torch device of the node (default: CUDA)")
+    ap.add_argument("--drain-timeout", type=float, default=60.0,
+                    dest="drain_timeout",
+                    help="seconds SIGTERM's drain waits for LEAVING shards "
+                         "to cut over (default 60)")
     args = ap.parse_args(argv)
 
     from m3_tpu_torch.core.config import load_config
@@ -62,7 +69,7 @@ def main(argv=None) -> int:
     # SIGTERM is a drain, not a fast exit: stop the front door,
     # flush/snapshot everything persistable, then close.
     log.info("node draining")
-    asm.drain()
+    asm.drain(handoff_timeout_s=args.drain_timeout)
     log.info("node shut down")
     status_path.unlink(missing_ok=True)
     return 0

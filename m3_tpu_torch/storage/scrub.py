@@ -30,9 +30,9 @@ Counters (``scrub.*`` on a node's /metrics): ``volumes_checked``,
 ``sweeps``.
 
 Also runnable on demand: ``POST /api/v1/database/scrub`` (admin API)
-runs an unbudgeted sweep in-process.  The reference's offline sweep
-(``scrub_root``, for its CLI) has no caller in the port and is not
-ported.
+runs an unbudgeted sweep in-process, and ``python -m
+m3_tpu_torch.tools.cli scrub <root>`` (:func:`scrub_root`) sweeps a data
+root offline without a running Database.
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ def verify_volume(root, namespace: str, shard: int, block_start: int,
 
 def _verify_outcome(root, namespace: str, shard: int, block_start: int,
                     volume: int):
-    """The sweep's verify-and-classify step: ``("ok", series)``,
+    """The online and offline sweeps' verify-and-classify step: ``("ok", series)``,
     ``("gone", None)`` (raced cleanup), or ``("corrupt", err)``.  ``corrupt`` covers the typed hierarchy AND
     untyped reader failures — bare decode errors and I/O-level rot
     (EIO on a failing sector) alike must flag the one volume, never
@@ -251,3 +251,38 @@ class Scrubber:
                           name, shard_id, bs)
         self._count("repair_attempts", stats["repair_attempts"])
         self._count("repairs_completed", stats["repaired"])
+
+
+def scrub_root(root, quarantine: bool = True) -> List[dict]:
+    """Offline sweep of a data root (no Database required — the ops/CLI
+    shape).  Verifies every checkpointed volume; corrupt ones are
+    quarantined unless ``quarantine=False`` (report-only).  Returns one
+    result dict per volume."""
+    from pathlib import Path
+
+    results = []
+    d = Path(root) / "data"
+    namespaces = sorted(p.name for p in d.iterdir() if p.is_dir()) if d.exists() else []
+    for ns in namespaces:
+        shards = sorted(
+            int(p.name) for p in (d / ns).iterdir() if p.name.isdigit()
+        )
+        for shard in shards:
+            for bs, vol in list_fileset_volumes(root, ns, shard):
+                rec: Dict = {"namespace": ns, "shard": shard,
+                             "block_start": bs, "volume": vol, "ok": True}
+                outcome, detail = _verify_outcome(root, ns, shard, bs, vol)
+                if outcome == "gone":
+                    continue
+                if outcome == "ok":
+                    rec["series"] = detail
+                else:
+                    rec.update(ok=False, error=str(detail),
+                               check=getattr(detail, "check", None))
+                    if quarantine:
+                        rec["quarantined"] = str(
+                            quar.quarantine_fileset(root, ns, shard, bs, vol,
+                                                    detail)
+                        )
+                results.append(rec)
+    return results

@@ -29,9 +29,21 @@ transfers host→device and device→host with their bytes, builds
 ``seams`` breaks both ledgers down by the op, factory or kernel each
 count came from (``x/hopwatch.seams``).
 On ``device="cpu"`` nothing crosses a device boundary, so the ledger
-counts no transfer and no dispatch.
+counts no transfer and no dispatch.  ``findings`` names the tax the
+ledger shows (``derive_findings``).
+
+``--check [BASELINE]`` is the reference's regression gate
+(``check_against_baseline``): the steady pipeline must not move more
+transfer bytes than the baseline allows (25 %), build a kernel library
+in the steady pass, grow any hop's steady dispatches past 10 %, or lose
+a hop (``cli hops`` sets both tolerances); a baseline of another platform,
+card, torch or corpus (S, T) is refused.  The committed baselines are
+``hops_baseline_cpu.json`` (a 48 x 20 corpus: on the CPU every count is
+0 at any corpus) and ``hops_baseline_cuda.json`` (the pinned corpus,
+written from the card by ``--out``), beside this module.
 
     python -m m3_tpu_torch.tools.hops [--S 1024] [--T 320] [--device cpu]
+    python -m m3_tpu_torch.tools.hops --device cpu --S 48 --T 20 --check
 """
 
 from __future__ import annotations
@@ -40,11 +52,15 @@ import argparse
 import contextlib
 import hashlib
 import json
+import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
+
+_HERE = Path(__file__).resolve().parent
 
 HOPS = ("wire_parse", "arena_ingest", "window_drain", "encode",
         "fileset_write")
@@ -62,6 +78,22 @@ START = (1_700_000_000 * 10**9) // BLOCK_NANOS * BLOCK_NANOS
 # derives it from that package)
 PINNED_VOLUME_SHA256 = (
     "ed52859a25cd0dcad9eda465ea4955d81e8218dd552641d955b2e156446bcf01")
+
+
+def default_baseline_path(platform: str) -> Path:
+    """The committed baseline of ``platform`` (``"cpu"`` or ``"cuda"``)."""
+    return _HERE / f"hops_baseline_{platform}.json"
+
+
+def _power_limit() -> str | None:
+    """The card's power limit as ``nvidia-smi`` reports it, or None."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out.strip().splitlines()[0] if out.strip() else None
 
 
 def _corpus(S: int, T: int, seed: int = 42):
@@ -267,14 +299,18 @@ def run_pipeline(S: int = S_DEFAULT, T: int = T_DEFAULT,
             "bytes_moved": st.get("h2d_bytes", 0) + st.get("d2h_bytes", 0),
             "dispatches": st.get("dispatches", 0),
         }
-    return {
+    cuda = dev.type == "cuda"
+    artifact = {
         "artifact": "PIPELINE",
         "generated_by": "python -m m3_tpu_torch.tools.hops",
         "config": {
             "S": S, "T": T, "resolution_s": RESOLUTION_S, "samples": n,
             "wire_bytes": sum(len(f) for f in frames), "device": str(dev),
-            "device_name": (torch.cuda.get_device_name(dev)
-                            if dev.type == "cuda" else "cpu"),
+            "platform": dev.type,
+            "device_name": torch.cuda.get_device_name(dev) if cuda else "cpu",
+            "power_limit": _power_limit() if cuda else None,
+            "torch": torch.__version__,
+            "cuda": torch.version.cuda if cuda else None,
         },
         "passes": {
             "cold": "pass 1, under x/hopwatch: the hops' cold ledgers",
@@ -296,6 +332,112 @@ def run_pipeline(S: int = S_DEFAULT, T: int = T_DEFAULT,
         "cold_volume_sha256": digests["cold"],
         "ledger_volume_sha256": digests["ledger"],
     }
+    artifact["findings"] = derive_findings(artifact)
+    return artifact
+
+
+def derive_findings(artifact: dict) -> list[str]:
+    """Concrete host-hop findings from the ledger — the artifact must
+    name the tax, not just tabulate it."""
+    findings = []
+    hops = artifact["hops"]
+    pipe = artifact["pipeline"]
+    cfg = artifact["config"]
+    dominant = max(hops, key=lambda h: hops[h]["host_time_fraction"])
+    frac = hops[dominant]["host_time_fraction"]
+    if frac > 0.5:
+        findings.append(
+            f"{dominant} is {frac:.0%} of steady pipeline wall — "
+            + ("the per-window consume pays a full-arena drain "
+               "(sort/segment over capacity C and a lanes-to-host copy "
+               "per policy window) regardless of window occupancy; a "
+               "device-resident pipeline should drain windows without "
+               "leaving the card and emit once per flush tick"
+               if dominant == "window_drain" else
+               "the top target for a device-resident pipeline"))
+    if cfg.get("wire_bytes"):
+        amp = pipe["transfer_bytes_steady"] / cfg["wire_bytes"]
+        if amp > 1.0:
+            findings.append(
+                f"host<->device traffic is {amp:.1f}x the wire volume "
+                f"({pipe['transfer_bytes_steady']:,} bytes moved across "
+                f"{pipe['transfers_steady']} transfers for "
+                f"{cfg['wire_bytes']:,} wire bytes): every stage "
+                f"round-trips through host numpy — the host-hop tax "
+                f"itemized")
+    enc = hops.get("encode", {})
+    if enc.get("steady", {}).get("h2d_bytes", 0) > 0:
+        findings.append(
+            f"encoder re-upload: {enc['steady']['h2d_bytes']:,} bytes "
+            f"pushed back to device that were device-resident at drain "
+            f"time one hop earlier — the drain->encode seam is the "
+            f"cheapest fusion in the rebuild")
+    return findings
+
+
+def _hop_dispatches(hop: dict) -> int:
+    """A hop's steady dispatches: the top-level ``dispatches``, or, in
+    an artifact that carries only the steady ledger, its count — same
+    number, different nesting."""
+    if "dispatches" in hop:
+        return hop["dispatches"]
+    return hop.get("steady", {}).get("dispatches", 0)
+
+
+# config keys a baseline pins, where it has them: a ledger of another
+# platform, card, torch or corpus is not a regression but another ledger
+_PINNED = ("platform", "device_name", "torch", "S", "T")
+
+
+def check_against_baseline(artifact: dict, baseline_path,
+                           tolerance: float = 0.25,
+                           dispatch_tolerance: float = 0.10) -> list[str]:
+    """Regression gate for ``--check``: the steady pipeline must not
+    move MORE transfer bytes, build a kernel library (the port's
+    ``compiles``), or grow any hop's steady DISPATCH count past
+    tolerance vs the committed baseline, and no hop may go missing.
+    Dispatch growth is the leading indicator the transfer gate misses:
+    a hop splitting into more device ops pays per-dispatch overhead
+    first and often moves the same bytes.  Returns violation strings
+    (empty = pass)."""
+    base = json.loads(Path(baseline_path).read_text())
+    errs = []
+    bcfg, ccfg = base.get("config") or {}, artifact.get("config") or {}
+    for key in _PINNED:
+        if key in bcfg and bcfg[key] != ccfg.get(key):
+            errs.append(f"{key} mismatch: baseline {bcfg[key]!r} vs current "
+                        f"{ccfg.get(key)!r} — compare like with like or "
+                        "re-baseline (--out)")
+    if errs:
+        return errs
+    b = base["pipeline"]["transfer_bytes_steady"]
+    cur = artifact["pipeline"]["transfer_bytes_steady"]
+    if cur > b * (1.0 + tolerance):
+        errs.append(
+            f"steady transfer bytes regressed: {cur} > baseline {b} "
+            f"(+{tolerance:.0%} tolerance)")
+    b = base["pipeline"].get("compiles_steady", 0)
+    cur = artifact["pipeline"].get("compiles_steady", 0)
+    if cur > b:
+        errs.append(
+            f"steady-state compiles regressed: {cur} > baseline {b} "
+            f"(a hop is retracing)")
+    # per-hop dispatch gate (dispatch counts are deterministic for a
+    # pinned corpus shape)
+    for h, bh in base.get("hops", {}).items():
+        bd = _hop_dispatches(bh)
+        ch = artifact.get("hops", {}).get(h)
+        if ch is None:
+            errs.append(f"hop {h} present in baseline but missing from "
+                        "this run — the pipeline lost a named stage")
+            continue
+        cd = _hop_dispatches(ch)
+        if cd > bd * (1.0 + dispatch_tolerance) and cd > bd:
+            errs.append(
+                f"hop {h}: steady dispatches regressed {bd} -> {cd} "
+                f"(+{dispatch_tolerance:.0%} tolerance) — the hop is "
+                "splitting into more device programs")
+    return errs
 
 
 def main(argv=None) -> int:
@@ -304,12 +446,35 @@ def main(argv=None) -> int:
     ap.add_argument("--T", type=int, default=T_DEFAULT)
     ap.add_argument("--device", default=None, help="default: the CUDA device")
     ap.add_argument("--root", default=None, help="keep the volumes here")
+    ap.add_argument("--out", default=None, help="write the artifact here")
+    ap.add_argument("--check", nargs="?", const="", default=None, metavar="BASELINE",
+                    help="gate against BASELINE (default: the committed one "
+                         "of the device's platform)")
     args = ap.parse_args(argv)
-    doc = run_pipeline(args.S, args.T, args.root, args.device)
-    print(json.dumps(doc, indent=2))
+    from m3_tpu_torch import resolve_device
+
+    dev = resolve_device(args.device)
+    base_path = None
+    if args.check is not None:
+        base_path = Path(args.check) if args.check else default_baseline_path(dev.type)
+        if not base_path.exists():
+            print(f"hops --check: no baseline at {base_path}", file=sys.stderr)
+            return 2
+    doc = run_pipeline(args.S, args.T, args.root, dev)
+    if args.out:
+        Path(args.out).write_text(json.dumps(doc, indent=1, sort_keys=True) + "\n")
     digests = {doc["volume_sha256"], doc["cold_volume_sha256"], doc["ledger_volume_sha256"]}
     pinned = (args.S, args.T) == (S_DEFAULT, T_DEFAULT)
-    return 1 if len(digests) > 1 or (pinned and doc["volume_sha256"] != PINNED_VOLUME_SHA256) else 0
+    rc = 1 if len(digests) > 1 or (pinned and doc["volume_sha256"] != PINNED_VOLUME_SHA256) else 0
+    if base_path is not None:
+        errs = check_against_baseline(doc, base_path)
+        print(json.dumps({"hops_check": {"ok": not errs, "baseline": str(base_path),
+                                         "violations": errs,
+                                         "pipeline": doc["pipeline"]}}))
+        return 1 if errs else rc
+    if not args.out:
+        print(json.dumps(doc, indent=2))
+    return rc
 
 
 if __name__ == "__main__":

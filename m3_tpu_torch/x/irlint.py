@@ -545,12 +545,13 @@ def residency_report(device=None, pipe: dict | None = None):
 # ---------------------------------------------------------------------------
 
 
-def build_artifact(device=None) -> dict:
-    """Lint the registry's censuses and the chain's residency on
-    ``device`` (None = CUDA), at :data:`PIPE` (:data:`CPU_PIPE` on the
-    CPU), and assemble the IRLINT document.  The censuses come from
-    costwatch's stage cache, so after a ``tools/costs`` build in the same
-    process no stage runs again."""
+def build_artifact(device=None, stage_names=None, log=None) -> dict:
+    """Lint the registry's censuses (or the named ``stage_names``: the
+    residency pass always runs) and the chain's residency on ``device``
+    (None = CUDA), at :data:`PIPE` (:data:`CPU_PIPE` on the CPU), and
+    assemble the IRLINT document; ``log(msg)`` hears each stage's census
+    wall.  The censuses come from costwatch's stage cache, so after a
+    ``tools/costs`` build in the same process no stage runs again."""
     from m3_tpu_torch import resolve_device
     from m3_tpu_torch.x import costwatch
 
@@ -558,7 +559,9 @@ def build_artifact(device=None) -> dict:
     pipe = CPU_PIPE if dev.type == "cpu" else PIPE
     findings: List[Finding] = []
     suppressions: List[dict] = []
-    stages = costwatch.counted_stages(device=dev)
+    on_stage = None if log is None else (
+        lambda name, seconds: log(f"irlint: {name} counted in {seconds:.1f} s"))
+    stages = costwatch.counted_stages(stage_names, device=dev, on_stage=on_stage)
     for cs in stages.values():
         f, s = analyze_program(cs)
         findings += f

@@ -7,6 +7,23 @@ import subprocess
 import sys
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "m3_tpu_torch"
+REF = PKG.parent / "m3_tpu"
+
+# the reference's modules the port carries under another name: the codec
+# scans, the three Pallas kernel files (each a wrapper module beside its
+# hand-written kernels), the IR text classifier (the port has no XLA text:
+# it classes aten dispatch records), the TPU bisector (card against CPU)
+# and the jax lint family
+RENAMED = {
+    "encoding/m3tsz_jax.py": ["encoding/m3tsz_torch.py"],
+    "parallel/pallas_encode.py": ["parallel/encode_place.py", "csrc/place_words.cu"],
+    "parallel/pallas_decode.py": ["parallel/decode_gather.py", "csrc/extract_fields.cu"],
+    "parallel/pallas_ingest.py": ["parallel/segment_ingest.py", "csrc/segment_ingest.cu",
+                                  "csrc/segment_minmax.cu"],
+    "x/hlotext.py": ["x/optext.py"],
+    "tools/tpu_bisect.py": ["tools/card_bisect.py"],
+    "x/lint/jaxlint.py": ["x/lint/torchlint.py"],
+}
 
 
 def _modules():
@@ -59,7 +76,9 @@ def test_every_module_imports_with_jax_blocked():
               "x.lint.placement", "x.lint.deadline_aware", "x.lint.metrics_rule",
               "x.lint.actuator_rule", "x.lint.capacity_rule", "x.lint.purity",
               "x.lint.torchlint", "x.lint.devguard_rule", "x.lint.registry_rule",
-              "x.irlint"):
+              "x.irlint",
+              # the ops CLI and the distributed tests
+              "tools.cli", "dtest", "dtest.harness", "dtest.agent", "dtest.soak"):
         assert f"m3_tpu_torch.{m}" in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -80,3 +99,18 @@ def test_sources_name_no_jax_or_reference_package():
     bad = re.compile(r"^\s*(import|from)\s+(jax\b|m3_tpu\b(?!_torch))", re.M)
     for p in list(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]:
         assert not bad.search(p.read_text()), p
+
+
+def test_every_reference_module_has_its_counterpart():
+    """Every module of ``m3_tpu/`` has a file at the same path in
+    ``m3_tpu_torch/``, or its listed rename: the port does all that the
+    JAX package does."""
+    missing = []
+    for p in sorted(REF.rglob("*.py")):
+        rel = p.relative_to(REF).as_posix()
+        want = RENAMED.get(rel, [rel])
+        missing += [f"{rel} -> {w}" for w in want if not (PKG / w).is_file()]
+    assert not missing, missing
+    # a rename whose reference module is gone would hide a stale entry
+    assert all((REF / rel).is_file() for rel in RENAMED)
+    assert not any((PKG / rel).exists() for rel in RENAMED)
