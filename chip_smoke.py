@@ -414,7 +414,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    [1, 2] of their measured actuals and the census's step counts within
    10 % of the documented ones; (b) ``tools/decode_profile`` in both
    modes at config #2's width over phase 3's corpus (``PROFILE_REPS``
-   timed runs, PERF.md §4), its layers nesting in dispatches a step; (c)
+   timed runs, PERF.md §4), its layers nesting in dispatches a step, each
+   mode reporting the native host codec's ``native_cpp_dps``; (c)
    ``tools/card_bisect`` at its default corpus (512 x 720): stages 1-5
    equal on the card and on the CPU, stage 6 equal; (d) the PromQL
    comparator on the card, its default corpus and a 256-series x 360-point
@@ -471,8 +472,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    The lane runs (a), then waits for phase 23 (b) to pass in its lane
    before (d), (b) and (c): they load the host, and 23 (b)'s remote
    fetches time out at 30 s.
+28. the native host codec (``m3_tpu_torch.native`` over
+   ``csrc/m3tsz.cc``, built with g++ at first use), in phase 26's lane
+   once phase 23 (b) has passed: (a) BASELINE config #1 at full width
+   (one series of 10^6 gauge points at 10 s, ``bench.py``'s seed-5
+   series): the native encode, best of 3, byte-equal to the port's
+   scalar ``Encoder`` over every point, and the native decode exact in
+   timestamps and value bits, each pass's datapoints/s printed with the
+   stream bytes, the thread count, ``os.cpu_count()`` and the host CPU
+   model; (b) config #2's corpus (``x/costwatch.bench_corpus(100_000,
+   720)``): the native ``encode_batch`` byte-equal on every series to
+   the card's (kernel #1), the card's ``decode_batch`` (kernel #2) and
+   the native one equal to each other and to the corpus, no fallback on
+   either side, each launch bit-equal to plain, both codecs' datapoints/s
+   printed; (c) ``instrument/selfmon.measure_overhead`` on the card at
+   the reference's defaults (4 s, batches of 2,000, 20,000 series, a
+   2 s cadence), printed and not gated.  Host and card figures of this
+   lane are taken beside other lanes (``shared_card``).
 
-Order.  Phases 16, 18-19 and 22-27 run in lanes: spawned processes of
+Order.  Phases 16, 18-19 and 22-28 run in lanes: spawned processes of
 their own, started with the script (phase 18's request builders start in
 its lane then), released after phase 11 and joined after phase 17.  The main
 process meanwhile runs phases 12-15, 20 and 17, in that order; phase 21
@@ -503,7 +521,9 @@ and ``measure_launches`` (phase 25's (a)-(d): all four in (a)'s census,
 #1 and #2 in (b)'s profile and (c)'s bisector), and ``gate_launches``
 (phase 26's (b)-(c): all four in (b)'s census, #1 in the residency
 passes' encodes), and ``dtest_launches`` (phase 27 (c): #1 in the
-re-encode, #2 in the decode of the soak's segments; none of #3-#4);
+re-encode, #2 in the decode of the soak's segments; none of #3-#4),
+and ``native_launches`` (phase 28 (b): #1 in the card's encode, #2 in
+its decode; none of #3-#4);
 ``shared_card`` names the phases whose kernel times were taken while a
 lane ran beside them.
 The last three lines are a JSON line of kernel records, the card's name
@@ -7781,6 +7801,7 @@ def profile_on_card(seed: int, dev, card: str) -> dict:
     for mode, got in (("encode", enc), ("decode", dec)):
         per = got["dispatches_per_step"]
         assert list(per.values()) == sorted(per.values()), (mode, per)  # the layers nest
+        assert got["native_cpp_dps"] > 0, mode  # the host codec's yardstick on the same corpus
         log(f"phase25 (b) [{card}] decode_profile --mode {mode}: " + json.dumps(got))
     return {"encode": enc, "decode": dec, "encode_s": t1 - t0,
             "decode_s": time.perf_counter() - t1, "launches": launches}
@@ -8239,8 +8260,12 @@ def gates_phase(seed: int, dev, card: str) -> dict:
     return {"parts": parts, "walls_s": walls, "launches": launches, "max_abs_err": err}
 
 
-def gates_lane(seed: int, card: str) -> dict:
-    """Phase 26 in a lane of its own."""
+def gates_lane(seed: int, card: str, done23b) -> dict:
+    """Phases 26 and 28 in a lane of their own; phase 28 waits for
+    ``done23b`` (phase 23 (b) passed in its lane): its threaded host codec
+    loads the host, and 23 (b)'s remote fetches time out at 30 s."""
+    import os
+
     import torch
 
     torch.set_num_threads(LANE_THREADS)
@@ -8248,6 +8273,14 @@ def gates_lane(seed: int, card: str) -> dict:
     t0 = time.perf_counter()
     out = gates_phase(seed, torch.device("cuda"), card)
     log(f"phase26 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    while not done23b.wait(2.0):
+        if os.getppid() != _LANE["ppid"]:
+            raise SystemExit("chip_smoke: the main process is gone")
+    log(f"phase28 waited {time.perf_counter() - t0:.1f} s for phase 23 (b)")
+    t0 = time.perf_counter()
+    out["native"] = native_phase(torch.device("cuda"), card)
+    log(f"phase28 done in {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -8710,6 +8743,199 @@ def dtest_records(kernels: list, got: dict, card: str) -> None:
     log(f"phase27 [{card}] launches on its path: {got['launches']}")
 
 
+# ---- phase 28: the native host codec ----
+
+NATIVE_POINTS = 1_000_000  # BASELINE config #1: one gauge series at 10 s
+NATIVE_SERIES, NATIVE_T = 100_000, 720  # config #2's corpus (x/costwatch.bench_corpus)
+# selfmon.measure_overhead at the reference's defaults
+OVERHEAD = {"duration_s": 4.0, "batch": 2000, "series": 20_000, "cadence_s": 2.0}
+
+
+def host_cpu() -> str:
+    """The host's CPU model: the machine type and what /proc/cpuinfo names
+    (``model name`` on x86; implementer and part on Arm, which has none)."""
+    import platform
+
+    fields: dict = {}
+    for line in Path("/proc/cpuinfo").read_text().splitlines():
+        key, sep, val = line.partition(":")
+        if sep:
+            fields.setdefault(key.strip(), val.strip())
+    names = [f"{k} {fields[k]}" for k in ("model name", "Model", "Hardware", "CPU implementer",
+                                          "CPU part") if k in fields]
+    return f"{platform.machine()}: " + ("; ".join(names) or "no model in /proc/cpuinfo")
+
+
+def native_single_series(card: str) -> dict:
+    """(a) BASELINE config #1 at full width, ``bench.py``'s series: 10^6
+    points at 10 s, seed 5, ``round(100 + cumsum(N(0, 0.5)), 2)``.  The
+    native encode (best of 3) must give the port's scalar ``Encoder``'s
+    bytes over every point, and the native decode the timestamps and value
+    bits back."""
+    import os
+
+    from m3_tpu_torch import native
+    from m3_tpu_torch.encoding.m3tsz import Datapoint, Encoder
+
+    N = NATIVE_POINTS
+    start = 1_600_000_000 * SEC
+    rng = np.random.default_rng(5)
+    ts = (start + np.arange(1, N + 1, dtype=np.int64) * 10 * SEC)[None, :]
+    vals = np.round(100.0 + np.cumsum(rng.normal(0, 0.5, N)), 2)[None, :]
+    starts = np.full(1, start, np.int64)
+    enc_s, dec_s = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        streams, fb = native.encode_batch(ts, vals, starts)
+        enc_s.append(time.perf_counter() - t0)
+        assert not fb.any(), "config #1: the native encode fell back"
+    for _ in range(3):
+        t0 = time.perf_counter()
+        dts, dvals, counts, dfb = native.decode_batch(streams, N + 1)
+        dec_s.append(time.perf_counter() - t0)
+    assert not dfb.any() and int(counts[0]) == N
+    assert np.array_equal(dts[0, :N], ts[0])
+    assert np.array_equal(dvals[0, :N].view(np.uint64), vals[0].view(np.uint64))
+    assert native.encode_series(ts[0], vals[0], start) == streams[0]
+    t0 = time.perf_counter()
+    enc = Encoder(start)
+    for t, v in zip(ts[0].tolist(), vals[0].tolist()):
+        enc.encode(Datapoint(t, v))
+    scalar = enc.stream()
+    scalar_s = time.perf_counter() - t0
+    assert scalar == streams[0], "config #1: native bytes != the scalar encoder's"
+    out = {"points": N, "stream_bytes": len(streams[0]),
+           "bytes_per_point": len(streams[0]) / N,
+           "encode_dps": [N / s for s in enc_s], "encode_best_dps": N / min(enc_s),
+           "decode_dps": [N / s for s in dec_s], "decode_best_dps": N / min(dec_s),
+           "scalar_encode_s": scalar_s, "scalar_encode_dps": N / scalar_s,
+           "threads": 1, "nthreads_default": native._nthreads(None),
+           "cpu_count": os.cpu_count(), "cpu": host_cpu()}
+    log(f"phase28 (a) [{card}] config #1, one series of {N} points: native encode "
+        f"{[round(x) for x in out['encode_dps']]} dps (best {out['encode_best_dps']:.0f}), "
+        f"decode {[round(x) for x in out['decode_dps']]} dps (best "
+        f"{out['decode_best_dps']:.0f}), {out['stream_bytes']} stream bytes "
+        f"({out['bytes_per_point']:.4f} a point), byte-equal to the scalar encoder over every "
+        f"point ({scalar_s:.1f} s, {out['scalar_encode_dps']:.0f} dps), round trip exact; "
+        f"one series runs on 1 thread (pool {out['nthreads_default']}); os.cpu_count() "
+        f"{out['cpu_count']}; host CPU {out['cpu']}; shared_card (beside other lanes)")
+    return out
+
+
+def native_corpus_on_card(dev, card: str) -> dict:
+    """(b) Config #2's corpus at full width (``bench_corpus(100_000,
+    720)``): the native ``encode_batch`` against the card's (kernel #1),
+    byte for byte on every series, and the native ``decode_batch``
+    against the card's (kernel #2), timestamps and value bits, both equal
+    to the corpus; no series falls back on either side.  Every launch is
+    held against its plain version (``KernelCheck``)."""
+    import os
+
+    from m3_tpu_torch import native
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.parallel import decode_gather, encode_place
+    from m3_tpu_torch.x import costwatch
+
+    S, T = NATIVE_SERIES, NATIVE_T
+    ts, vals, starts = costwatch.bench_corpus(S, T)
+    threads = native._nthreads(None)
+    t0 = time.perf_counter()
+    n_streams, n_fb = native.encode_batch(ts, vals, starts)
+    n_enc = time.perf_counter() - t0
+    assert not n_fb.any(), "config #2: the native encode fell back"
+    t0 = time.perf_counter()
+    n_ts, n_vals, n_counts, n_dfb = native.decode_batch(n_streams, T + 1)
+    n_dec = time.perf_counter() - t0
+    zero_launches()
+    with KernelCheck(mt, "place_words", encode_place.place_words_plain) as place, \
+            KernelCheck(mt, "extract_fields64_t", decode_gather.extract_fields64_t_plain) as ext:
+        t0 = time.perf_counter()
+        c_streams, c_fb = mt.encode_batch(ts, vals, starts, fit_words=True, device=dev)
+        c_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c_ts, c_vals, c_counts, c_dfb = mt.decode_batch(n_streams, T + 1, device=dev)
+        c_dec = time.perf_counter() - t0
+    launches = read_launches()
+    assert not c_fb.any() and not n_dfb.any() and not c_dfb.any()
+    diff = [i for i in range(S) if c_streams[i] != n_streams[i]]
+    assert not diff, f"config #2: {len(diff)} series differ, the first {diff[:5]}"
+    for got_ts, got_vals, got_counts in ((n_ts, n_vals, n_counts), (c_ts, c_vals, c_counts)):
+        assert (got_counts == T).all()
+        assert np.array_equal(got_ts[:, :T], ts)
+        assert np.array_equal(got_vals[:, :T].view(np.uint64), vals.view(np.uint64))
+    assert launches["place_words"] > 0 and launches["extract_fields64_t"] > 0, launches
+    assert launches["segment_ingest"] == launches["segment_minmax"] == 0, launches
+    nbytes = sum(len(x) for x in n_streams)
+    out = {"S": S, "T": T, "stream_bytes": nbytes, "bytes_per_point": nbytes / (S * T),
+           "native_encode_dps": S * T / n_enc, "native_decode_dps": S * T / n_dec,
+           "card_encode_dps": S * T / c_enc, "card_decode_dps": S * T / c_dec,
+           "native_encode_s": n_enc, "native_decode_s": n_dec,
+           "card_encode_s": c_enc, "card_decode_s": c_dec,
+           "threads": threads, "cpu_count": os.cpu_count(), "launches": launches,
+           "max_abs_err": {"place_words": place.err, "extract_fields64_t": ext.err,
+                           "segment_ingest": 0, "segment_minmax": 0}}
+    log(f"phase28 (b) [{card}] config #2, {S} x {T}: native encode {out['native_encode_dps']:.0f} "
+        f"dps ({n_enc:.2f} s), decode {out['native_decode_dps']:.0f} dps ({n_dec:.2f} s) on "
+        f"{threads} threads, nproc {out['cpu_count']}; the card's encode_batch "
+        f"{out['card_encode_dps']:.0f} dps ({c_enc:.2f} s), decode_batch "
+        f"{out['card_decode_dps']:.0f} dps ({c_dec:.2f} s), host walls; every series "
+        f"byte-equal ({nbytes} bytes, {out['bytes_per_point']:.4f} a point), both decodes "
+        f"equal to the corpus, no fallback; kernel #1 {place.calls} launches, kernel #2 "
+        f"{ext.calls}, each bit-equal to plain; shared_card (beside other lanes)")
+    return out
+
+
+def selfmon_overhead_on_card(dev, card: str) -> dict:
+    """(c) ``selfmon.measure_overhead`` on the card at the reference's
+    defaults; recorded, not gated (the reference records it so)."""
+    from m3_tpu_torch.instrument import selfmon
+
+    root = ROOT / "build" / "phase28"
+    root.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    out = selfmon.measure_overhead(**OVERHEAD, root=str(root), device=dev)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase28 (c) [{card}] selfmon.measure_overhead on the card (not gated; "
+        f"shared_card): " + json.dumps(out))
+    return out
+
+
+def native_phase(dev, card: str) -> dict:
+    """Phase 28: (a) config #1 on the host, (b) config #2's corpus, the
+    native codec against the card's, (c) selfmon's overhead on the card;
+    each part's wall.  Launches are counted from 0 over (b), the phase's
+    path."""
+    import torch
+
+    from m3_tpu_torch import native
+
+    t0 = time.perf_counter()
+    assert native.available(), "the native codec did not build"
+    log(f"phase28 native codec loaded (g++ build included) in {time.perf_counter() - t0:.1f} s")
+    walls, parts = {}, {}
+    for key, fn in (("a", lambda: native_single_series(card)),
+                    ("b", lambda: native_corpus_on_card(dev, card)),
+                    ("c", lambda: selfmon_overhead_on_card(dev, card))):
+        t0 = time.perf_counter()
+        parts[key] = fn()
+        walls[key] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    log(f"phase28 [{card}] part walls (s): {json.dumps(walls)}")
+    return {"parts": parts, "walls_s": walls, "launches": parts["b"].pop("launches"),
+            "max_abs_err": parts["b"].pop("max_abs_err")}
+
+
+def native_records(kernels: list, got: dict, card: str) -> None:
+    """Phase 28's result into the kernel records: ``native_launches``
+    ((b)'s launches: #1 and #2 above 0, #3 and #4 none) and its largest
+    difference from the plain versions."""
+    for k in kernels:
+        name = k["name"]
+        k["native_launches"] = got["launches"][name]
+        k["max_abs_err"] = max(k["max_abs_err"], got["max_abs_err"][name])
+    log(f"phase28 [{card}] launches on its path: {got['launches']}")
+
+
 # ---- lanes: phases in processes of their own, beside the main one ----
 
 KERNEL_NAMES = ("place_words", "extract_fields64_t", "segment_ingest", "segment_minmax")
@@ -8855,7 +9081,7 @@ def main() -> int:
 
     card = card_line()
     t_start = time.perf_counter()
-    # phases 16, 18-19 and 22-27 run in lanes, processes of their own started
+    # phases 16, 18-19 and 22-28 run in lanes, processes of their own started
     # now and released after phase 11, beside phases 12-15, 20 and 17 in
     # this one (PERF.md §4)
     lanes = []
@@ -8866,7 +9092,7 @@ def main() -> int:
                           env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}))
         done23b = multiprocessing.get_context("spawn").Event()
         lanes.append(Lane("phases23b-24", federation_lane, args.seed, card, done23b))
-        lanes.append(Lane("phase26", gates_lane, args.seed, card))
+        lanes.append(Lane("phases26-28", gates_lane, args.seed, card, done23b))
         # the soak's node processes inherit the lane's environment: two
         # torch threads each, beside the other lanes
         lanes.append(Lane("phase27", dtest_lane, args.seed, card, done23b,
@@ -8878,7 +9104,7 @@ def main() -> int:
 
 
 def run(args, lanes: list, card: str, t_start: float) -> int:
-    """Phases 1-27 (see the module docstring); ``lanes`` wait for their
+    """Phases 1-28 (see the module docstring); ``lanes`` wait for their
     release after phase 11."""
     import torch
 
@@ -9140,7 +9366,7 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
     del packed_t
     torch.cuda.empty_cache()
 
-    # ---- the lanes start: phases 16, 18-19 and 22-27 beside 12-15, 20, 17 ----
+    # ---- the lanes start: phases 16, 18-19 and 22-28 beside 12-15, 20, 17 ----
     for lane in lanes:
         lane.release()
     spans = {}  # phase -> (process, wall start, wall end)
@@ -9203,7 +9429,7 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
     spans["phase17"] = ("main", w0, time.time())
     torch.cuda.empty_cache()
 
-    # ---- the lanes end: phase 16, phases 18-19, phases 22-25, phases 26 and 27 ----
+    # ---- the lanes end: phase 16, phases 18-19, phases 22-25, 23b-24, 26-28 and 27 ----
     ds_lane, node_lane, ctl_lane, fed_lane, gate_lane, soak_lane = lanes
     downsample_records(kernels, ds_lane.result(), fwd, card)
     merge_records(kernels, node_lane.result()["records"])
@@ -9213,7 +9439,9 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
     front_door_records(kernels, ctl["front_door"], fed["federation"], card)
     instrument_records(kernels, fed["instruments"], card)
     measuring_records(kernels, ctl["measure"], card)
-    gates_records(kernels, gate_lane.result(), card)
+    gates = gate_lane.result()
+    gates_records(kernels, gates, card)
+    native_records(kernels, gates["native"], card)
     dtest_records(kernels, soak_lane.result(), card)
     for lane in lanes:
         spans[lane.name] = (lane.name, *lane.span)

@@ -1,8 +1,10 @@
-"""Debug bundles.
+"""Debug bundles and condition-triggered profile capture.
 
 Reference parity: `src/x/debug/debug.go` builds a zip of pprof profiles
-(cpu/heap/goroutine/host info) served over HTTP.  The Python-runtime
-equivalents:
+(cpu/heap/goroutine/host info) served over HTTP, and
+`src/x/debug/triggering_profile.go` auto-captures profiles when a
+watched condition fires (e.g. a slow tick), rate-limited so a flapping
+condition cannot fill the disk.  The Python-runtime equivalents:
 
 * goroutine dump  -> per-thread stack traces (`sys._current_frames`);
 * pprof cpu       -> a cross-thread SAMPLING capture over a short
@@ -17,9 +19,8 @@ Everything returns bytes/dicts — the HTTP layer (server/http_api.py
 
 The port's copy of ``m3_tpu/instrument/debug.py`` (it imports nothing of
 ``m3_tpu``): the same bundle members (``threads.txt``, ``cpu.txt``,
-``heap.txt``, ``host.json``).  The reference's ``TriggeringProfiler``
-(a bundle written to disk when a watched condition fires) is left out:
-nothing in either package attaches one but the reference's own test.
+``heap.txt``, ``host.json``), and the same ``TriggeringProfiler``,
+which the storage mediator feeds each tick's duration.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import time
 import traceback
 import zipfile
 from collections import Counter
+from pathlib import Path
 
 _START_TIME = time.time()
 
@@ -131,3 +133,55 @@ def debug_bundle(registry=None, cpu_seconds: float = 0.5) -> bytes:
         z.writestr("host.json", json.dumps(host_info(registry), indent=2,
                                            default=str))
     return buf.getvalue()
+
+
+class TriggeringProfiler:
+    """Auto-capture a debug bundle when a condition fires (reference
+    triggering_profile.go: e.g. profile automatically when a flush tick
+    exceeds its deadline), rate-limited by ``min_interval_s`` and capped
+    at ``max_captures`` files so a flapping condition cannot fill the
+    disk.
+
+    Hook it from the code that observes the condition::
+
+        prof = TriggeringProfiler(dir, lambda d: d > 5.0)
+        ...
+        prof.observe(tick_duration_s)   # captures when the predicate fires
+    """
+
+    def __init__(self, out_dir: str, predicate, min_interval_s: float = 60.0,
+                 max_captures: int = 10, registry=None,
+                 cpu_seconds: float = 0.5, now=time.monotonic):
+        self.out_dir = Path(out_dir)
+        self.predicate = predicate
+        self.min_interval_s = min_interval_s
+        self.max_captures = max_captures
+        self.registry = registry
+        self.cpu_seconds = cpu_seconds
+        self._now = now
+        self._last = -1e18
+        self._lock = threading.Lock()
+        self.captures = 0
+
+    def observe(self, value) -> Path | None:
+        """Feed one observation; returns the bundle path when a capture
+        happened.  Never raises (a broken profiler must not take down
+        the observed path)."""
+        try:
+            if not self.predicate(value):
+                return None
+            with self._lock:
+                t = self._now()
+                if (self.captures >= self.max_captures
+                        or t - self._last < self.min_interval_s):
+                    return None
+                self._last = t
+                self.captures += 1
+                n = self.captures
+            self.out_dir.mkdir(parents=True, exist_ok=True)
+            path = self.out_dir / f"triggered-{n:03d}.zip"
+            path.write_bytes(
+                debug_bundle(self.registry, cpu_seconds=self.cpu_seconds))
+            return path
+        except Exception:  # noqa: BLE001 — observation path stays safe
+            return None

@@ -1,17 +1,20 @@
-"""Storage policies: resolution + retention.  The port's copy of the
-parts of ``m3_tpu/metrics/policy.py`` the aggregator needs
-(``parse_duration``, ``format_duration``, ``Resolution``,
-``StoragePolicy``).
+"""Storage policies: resolution + retention.  The port's copy of
+``m3_tpu/metrics/policy.py``.
 
 Reference parity: ``src/metrics/policy/storage_policy.go:49`` (StoragePolicy
 struct), ``resolution.go`` / ``retention.go`` (duration-string forms like
-``10s:2d`` or ``1m:40d``).
+``10s:2d`` or ``1m:40d``), ``src/metrics/policy/policy.go`` (policy =
+storage policy + aggregation ID), and staged metadata
+(``src/metrics/metadata/metadata.go``).
 """
 
 from __future__ import annotations
 
 import re
 from dataclasses import dataclass
+from typing import Tuple
+
+from m3_tpu_torch.metrics.aggregation import AggregationID
 
 _NANOS = {
     "ns": 1,
@@ -98,3 +101,50 @@ def _default_precision(window_nanos: int) -> int:
         if window_nanos >= _NANOS[unit]:
             return _NANOS[unit]
     return 1
+
+
+@dataclass(frozen=True)
+class Policy:
+    """StoragePolicy + aggregation set (reference src/metrics/policy/policy.go)."""
+
+    storage_policy: StoragePolicy
+    aggregation_id: AggregationID = AggregationID.DEFAULT
+
+
+DEFAULT_STORAGE_POLICIES: Tuple[StoragePolicy, ...] = (
+    StoragePolicy.parse("10s:2d"),
+    StoragePolicy.parse("1m:40d"),
+)
+
+
+@dataclass(frozen=True)
+class PipelineMetadata:
+    """One aggregation-key worth of metadata: aggregation set + storage
+    policies + (optional) pipeline ops
+    (reference src/metrics/metadata/metadata.go PipelineMetadata)."""
+
+    aggregation_id: AggregationID = AggregationID.DEFAULT
+    storage_policies: Tuple[StoragePolicy, ...] = DEFAULT_STORAGE_POLICIES
+    pipeline: tuple = ()  # tuple of pipeline ops (metrics.pipeline)
+    drop_policy: int = 0  # 0 = none, 1 = drop (reference policy/drop_policy.go)
+
+
+@dataclass(frozen=True)
+class Metadata:
+    """Set of pipeline metadatas for one metric
+    (reference metadata.go Metadata)."""
+
+    pipelines: Tuple[PipelineMetadata, ...] = (PipelineMetadata(),)
+
+
+@dataclass(frozen=True)
+class StagedMetadata:
+    """Metadata staged with a cutover time
+    (reference metadata.go StagedMetadata)."""
+
+    metadata: Metadata = Metadata()
+    cutover_nanos: int = 0
+    tombstoned: bool = False
+
+
+DEFAULT_STAGED_METADATA = StagedMetadata()

@@ -18,9 +18,9 @@ The port's copy of ``m3_tpu/storage/mediator.py`` over the port's
 is logged and counted (``*_errors``) and the pass goes on, as in the
 reference; callers that must not miss a failure read those counters and
 the returned stats.  :meth:`close` joins the loop thread, so a pass in
-flight ends before the caller frees the database.  The reference's
-optional ``profiler`` hook (a ``TriggeringProfiler`` only its own test
-attaches) is left out.
+flight ends before the caller frees the database.  The optional
+``profiler`` (an ``instrument.debug.TriggeringProfiler``) observes each
+pass's wall duration, as in the reference.
 """
 
 from __future__ import annotations
@@ -121,6 +121,10 @@ class Mediator:
         # see instrument.Timer's staleness caveat.
         self._timer_tick = (self._scope.timer("tick_wall_seconds")
                             if self._scope is not None else None)
+        # Optional condition-triggered profiler (reference
+        # triggering_profile.go): observe() gets each pass's wall
+        # duration, so a slow tick auto-captures a debug bundle.
+        self.profiler = None
 
     def run_once(self, now_nanos: int | None = None) -> dict:
         """One maintenance pass: tick (seal+flush) every call, snapshot and
@@ -213,6 +217,8 @@ class Mediator:
             stats["duration_s"] = time.monotonic() - t0
             if self._timer_tick is not None:
                 self._timer_tick.record(stats["duration_s"])
+            if self.profiler is not None:
+                stats["profile"] = self.profiler.observe(stats["duration_s"])
             return stats
 
     # -- background loop ---------------------------------------------------

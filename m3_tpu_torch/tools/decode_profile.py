@@ -42,10 +42,13 @@ The reference's output keys are kept where the layer exists in the port.
 Dropped, because they name things only the reference has:
 ``old_r05_single_scan`` and ``vs_old_r05``, ``element_ops_r05``,
 ``full_1device`` and ``full_all_devices`` (the port profiles one
-device), ``native_cpp_dps`` (the port has no native codec),
-``old_r07_wide_carry_scan``, ``vs_old_r07``,
+device), ``old_r07_wide_carry_scan``, ``vs_old_r07``,
 ``element_ops_r07_wide_carry``, ``full_<place>`` for other placement
 tails (the port has one), and ``compile_s`` (nothing compiles).
+
+Both modes also time the native C++ codec (``m3_tpu_torch.native``,
+threaded on the host) over the same corpus, as ``native_cpp_dps``,
+whenever it is available: the host yardstick beside the card's ``full``.
 
     python -m m3_tpu_torch.tools.decode_profile [--mode encode] \\
         [-S 10000] [-T 720] [--device cpu] [-o PROFILE.json]
@@ -61,7 +64,7 @@ import time
 import numpy as np
 import torch
 
-from m3_tpu_torch import resolve_device
+from m3_tpu_torch import native, resolve_device
 from m3_tpu_torch._bits import shl, shr
 from m3_tpu_torch.encoding import m3tsz_torch as mt
 from m3_tpu_torch.x import costwatch
@@ -118,6 +121,22 @@ def encoded(ts, vals, starts, device):
     words, nbits = mt.pack_streams(streams)
     return (torch.from_numpy(words.view(np.int64)).to(dev),
             torch.from_numpy(nbits).to(dev))
+
+
+def _host_timed(fn):
+    """``fn()``'s result and its wall seconds, for host work alone (the
+    native codec touches no device, so no synchronize is owed)."""
+    t0 = time.perf_counter()
+    res = fn()
+    return res, time.perf_counter() - t0
+
+
+def _streams_of(words, nbits) -> list[bytes]:
+    """The byte streams behind packed ``(words, nbits)`` (``pack_streams``
+    keeps every stream whole bytes, so each is its words' first
+    ``nbits // 8`` big-endian bytes)."""
+    rows = words.cpu().numpy().view(np.uint64).astype(">u8")
+    return [rows[i].tobytes()[:n // 8] for i, n in enumerate(nbits.cpu().tolist())]
 
 
 def _prep(words, nbits):
@@ -253,6 +272,11 @@ def profile(S: int, T: int, device=None, corpus=None, packed=None,
         "full_series_major": round(S * T / t_series_major),
         "full_fused_tail": round(S * T / t_fused),
     }
+    # the native C++ yardstick on the same streams
+    if native.available():
+        streams = _streams_of(words, nbits)
+        _, t = _host_timed(lambda: native.decode_batch(streams, max_points))
+        out["native_cpp_dps"] = round(S * T / t)
     # the step's structural op count: every lane through every branch
     wz, nb, unit0 = _prep(words, nbits)
     step_ops = _count_ops(mt._decode_step, mt._decode_carry0(S, dev), wz, nb, unit0, tbl)
@@ -380,6 +404,11 @@ def profile_encode(S: int, T: int, device=None, corpus=None, reps: int = REPS,
         "ceiling_if_scan_only": round(S * T / layers["phase1"]),
         "ceiling_if_classify_free": round(S * T / max(layers["phase1"] - t_classify, 1e-9)),
     }
+    # the native C++ yardstick on the same corpus
+    if native.available():
+        (_, fallback), t = _host_timed(lambda: native.encode_batch(*corpus))
+        if not fallback.any():
+            out["native_cpp_dps"] = round(S * T / t)
     ts, vb, start, valid = args
     carry0 = mt._encode_carry0(S, start, 1, 1)
     step_ops = _count_ops(mt._encode_step, carry0, ts[:, 0], vb[:, 0], valid[:, 0], unit=1,

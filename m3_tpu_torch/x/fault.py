@@ -33,9 +33,10 @@ import time
 from typing import Callable, Dict, List
 
 __all__ = [
-    "FaultInjected", "FaultSpec", "arm", "armed", "apply_request",
-    "disarm", "fire", "mangle", "counters", "parse_faults",
-    "registry_response", "reset_counters", "snapshot",
+    "FaultInjected", "FaultSpec", "arm", "armed", "arm_many",
+    "apply_request", "disarm", "fire", "mangle", "counters",
+    "parse_faults", "registry_response", "reset_counters", "points",
+    "snapshot",
 ]
 
 
@@ -246,6 +247,15 @@ def parse_faults(raw: str) -> List[tuple]:
     return out
 
 
+def arm_many(raw: str) -> int:
+    """Parse-then-arm one spec string; returns the number of specs
+    armed.  All-or-nothing: a grammar error arms NOTHING."""
+    specs = parse_faults(raw)
+    for point, mode, kw in specs:
+        arm(point, mode, **kw)
+    return len(specs)
+
+
 def snapshot() -> List[dict]:
     """Every armed spec as a dict (point/mode/knobs + live pass/trigger
     counts), sorted by point then mode — the readable half of the
@@ -322,3 +332,8 @@ def reset_counters() -> None:
             for spec in specs:
                 spec.triggers = 0
                 spec._passes = 0
+
+
+def points() -> List[str]:
+    with _lock:
+        return sorted(_points)

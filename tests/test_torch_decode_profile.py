@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from m3_tpu_torch import native
 from m3_tpu_torch.encoding import m3tsz_torch as mt
 from m3_tpu_torch.tools import decode_profile as dp
 from m3_tpu_torch.x import costwatch as cw
@@ -106,9 +107,10 @@ def test_profile_decode_report(packed):
     assert per["carry"] <= per["reads"] <= per["full"]
     assert per["full"] >= out["step_ops"] == out["element_ops_per_datapoint"]
     assert abs(out["step_ops"] / cw.DOCUMENTED_OPS_PER_DP["decode_step"] - 1) <= 0.1
-    # the reference-only keys are gone
-    assert not {"old_r05_single_scan", "vs_old_r05", "full_1device", "element_ops_r05",
-                "native_cpp_dps"} & (set(out) | set(out["dps"]))
+    # the reference-only keys are gone; the native yardstick is there
+    assert not {"old_r05_single_scan", "vs_old_r05", "full_1device",
+                "element_ops_r05"} & (set(out) | set(out["dps"]))
+    assert native.available() and out["native_cpp_dps"] > 0
 
 
 def test_profile_encode_report_and_kept_streams():
@@ -125,6 +127,7 @@ def test_profile_encode_report_and_kept_streams():
     assert out["classify_ops"] < out["step_ops"]
     assert not {"old_r07_wide_carry_scan", "vs_old_r07", "element_ops_r07_wide_carry",
                 "compile_s", "full_1device"} & (set(out) | set(out["dps"]))
+    assert native.available() and out["native_cpp_dps"] > 0
     words, nbits = keep["packed"]
     ts, payload, meta, err, prec, ann = mt.decode_batch_device(words, nbits, T + 1,
                                                                device=CPU)
@@ -132,3 +135,12 @@ def test_profile_encode_report_and_kept_streams():
     assert np.array_equal(ts[:, :T].numpy(), corpus[0])
     vals = mt.payload_value_bits(payload[:, :T].numpy().view(np.uint64), meta[:, :T].numpy())
     assert np.array_equal(vals.view(np.float64), corpus[1])
+
+
+def test_streams_of_packed_words_are_the_encoded_streams(packed):
+    """The native decode in ``profile`` reads the byte streams behind the
+    packed words: they are the streams ``pack_streams`` was given."""
+    ts, vals, starts = cw.bench_corpus(S, T)
+    streams, fallback = native.encode_batch(ts, vals, starts)
+    assert not fallback.any()
+    assert dp._streams_of(*packed) == streams
