@@ -8,29 +8,41 @@ Run from the repository root with no arguments:
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-1. print the card's name and power limit; build the four CUDA kernels
+1. print the card's name and power limit; build the five CUDA kernels
    from ``m3_tpu_torch/csrc`` with nvcc for sm_90a (in parallel) and
    print their ``-Xptxas -v`` reports;
 2. hold each kernel against its plain PyTorch version on the card, bit
    for bit, at the main path's shapes, with the edge cases (keys out of
    range, widths 0 and 64 and out of range, offsets in the zero pad and
-   negative, words with bit 63 set);
+   negative, words with bit 63 set); kernel #2 also at S = 1, 31, 33 and
+   1,000 series with W = 2 words and with W wider than its staged window,
+   offsets rising, non-monotone, negative and past W, every width class;
+   the decode scan, both forms, on an edge corpus (the Go golden streams,
+   the pinned decode corpus, phase 3's mix from an aligned and an
+   unaligned start, int/float switches, first-point annotations,
+   truncated, bit-flipped and random streams) at three ``max_points``
+   (past every stream, exactly at the mix's EOS, short): every lane
+   table and the final carry;
 3. the main path: ``encode_batch`` then ``decode_batch`` on the card at
    S series x T points (the JAX package's flush setting ``out_words =
    max(16, T*40//64 + 8)``) over a seeded mix of counters, decimal gauges,
    dyadic random walks, constants and NaN-bearing series with jittered
    timestamps; every non-fallback series must round-trip exactly, the
-   fallback share must stay under 5 %, both kernels must have launched,
-   and a slice must give the same bytes as the CPU path (a warm-up pass
-   on 1,000 series x 32 points first: the lazy inits and the kernels'
-   first loads);
+   fallback share must stay under 5 %, the three codec kernels must have
+   launched (the decode pass: one launch of the scan and one of kernel
+   #2, and no ``_decode_step`` on a card tensor), and a slice must give
+   the same bytes as the CPU path (a warm-up pass on 1,000 series x 32
+   points first: the lazy inits and the kernels' first loads);
 4. golden bytes: the Go-encoded streams in ``tests/data`` decode and
-   re-encode to identical bytes, and the arithmetic batch hashes to the
-   pinned digest;
+   re-encode to identical bytes, the arithmetic batch hashes to the
+   pinned digest, and the pinned decode corpus decodes on the card to its
+   pinned sha256 (both tails equal);
 5. times: datapoints/s of each pass with its phase split; each kernel,
    on the very inputs the timed pass handed it, held bit-equal to its
    plain version once more and timed beside its bound, its plain
-   version and the library call; peak device memory;
+   version and the library call (the decode scan in both forms, its
+   plain loop run once on the card; kernel #2 beside a copy of as many
+   bytes); peak device memory;
 6. the aggregator's two kernels (``segment_ingest``, ``segment_minmax``),
    in place into non-zero state columns and in their fresh forms,
    against their plain versions run on CPU copies, int64 and float64,
@@ -666,6 +678,174 @@ def pinned_batch():
     vals[2] = np.float64((j[0] * 7) % 1000)
     vals[5, 10:] = vals[5, 9]
     return ts, vals, np.full(S, S0, np.int64)
+
+
+SCAN_CUTS = (740, 120, 17)  # the scan's edge corpus: past every stream, the mix's EOS, short
+EXTRACT_EDGE_SHAPES = ((1, 2), (31, 2), (33, 2), (1000, 2), (1, 70), (31, 70), (33, 70),
+                       (1000, 70))  # (S, W): W = 70 is wider than kernel #2's staged window
+
+
+def scan_inputs(words, nbits, dev) -> tuple:
+    """The decode scan's inputs for packed streams, as
+    ``_decode_batch_device`` makes them with its default unit (SECOND):
+    (padded words, bit lengths, initial units, control table) on ``dev``."""
+    import torch
+
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+
+    w = torch.from_numpy(np.ascontiguousarray(words).view(np.int64)).to(dev)
+    wpad = torch.nn.functional.pad(w, (0, mt._PAD_WORDS))
+    unit0 = torch.where((wpad[:, 0] % SEC) == 0, 1, 0)
+    return (wpad, torch.from_numpy(np.asarray(nbits, np.int64)).to(dev), unit0,
+            mt.value_ctrl_table(dev))
+
+
+def scan_err(got, want) -> int:
+    """Largest bit difference between two decode-scan results ((lanes,
+    carry) each), every table and carry lane of the same type and shape."""
+    err = 0
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        assert a.dtype == b.dtype and a.shape == b.shape, (a.dtype, b.dtype, a.shape, b.shape)
+        if a.numel():
+            err = max(err, int((a.long() ^ b.long()).abs().max()))
+    return err
+
+
+def scan_bytes(wpad, nbits, max_points: int, fused: bool) -> int:
+    """The bytes the decode scan must move: each stream's words, bit
+    lengths, initial units and the control table read once, the lane
+    tables and the final carry written once."""
+    from m3_tpu_torch.parallel import decode_scan
+
+    S = wpad.shape[0]
+    words = int(((nbits + 63) // 64).sum())
+    lane = 17 if fused else 16
+    return (words * 8 + S * 16 + decode_scan.CTRL_ENTRIES * 4
+            + max_points * S * lane + decode_scan.CARRY_ROWS[fused] * S * 8)
+
+
+def scan_edge_streams(seed: int, dev) -> list:
+    """The decode scan's edge corpus (phase 2): the Go golden streams, the
+    pinned decode corpus (annotations, a time-unit change, NaN/Inf),
+    phase 3's mix at 120 points from an aligned and an unaligned start
+    (a time-unit marker first), ints, decimals and raw floats alternating
+    in each series, first-point annotations, and truncated, bit-flipped
+    and random streams."""
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+
+    streams = []
+    with open(ROOT / "tests" / "data" / "m3tsz_sample_series.json") as fh:
+        streams += [base64.b64decode(x) for x in json.load(fh)]
+    with open(ROOT / "tests" / "data" / "decode_corpus.json") as fh:
+        streams += [base64.b64decode(x) for x in json.load(fh)["streams"]]
+    ts, vals, starts = make_batch(seed + 11, 16, SCAN_CUTS[1])
+    for shift in (0, 123):
+        enc, _ = mt.encode_batch(ts, vals, starts - shift, fit_words=True, device=dev)
+        streams += [x for x in enc if x]
+    rng = np.random.default_rng(seed + 12)
+    T = 60
+    tt = np.tile(ts[0, :T], (3, 1))
+    k = np.arange(T)
+    sw = np.stack([np.where(k % 3 == 0, rng.normal(0, 1, T), k),
+                   np.where(k % 5 < 2, np.round(rng.normal(9, 3, T), 3), k * 1000.0),
+                   np.where(k % 2 == 0, 1e-7 * k, -k * 0.5)])
+    streams += mt.encode_batch(tt, sw + 0.0, starts[:3], fit_words=True, device=dev)[0]
+    streams += mt.encode_batch(tt[:2, :24], np.round(sw[:2, :24], 1) + 0.0, starts[:2],
+                               fit_words=True, annotations=[b"schema-A", b"x" * 200],
+                               device=dev)[0]
+    good = [x for x in streams if len(x) > 40]
+    streams += [x[: len(x) // 2] for x in good[:4]]
+    for x in good[4:8]:
+        b = bytearray(x)
+        for i in rng.integers(8, len(b), 3):
+            b[i] ^= 1 << int(rng.integers(0, 8))
+        streams.append(bytes(b))
+    streams += [int(starts[0]).to_bytes(8, "big") + rng.bytes(int(n)) for n in (3, 40, 300)]
+    return streams + [b"", b"\x00" * 9]
+
+
+def scan_edge_checks(seed: int, dev) -> int:
+    """Phase 2's decode-scan check: the kernel against its plain loop on
+    the card, both forms, at each of ``SCAN_CUTS``, every lane table and
+    the final carry bit for bit.  Returns the largest bit difference."""
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.parallel import decode_scan
+
+    words, nbits = mt.pack_streams(scan_edge_streams(seed, dev))
+    args = scan_inputs(words, nbits, dev)
+    err = 0
+    for fused in (False, True):
+        for P in SCAN_CUTS:
+            got = decode_scan.decode_scan(*args, P, fused=fused)
+            want = decode_scan.decode_scan_plain(*args, P, fused)
+            e = scan_err(got, want)
+            assert e == 0, f"decode_scan kernel != plain (fused={fused}, max_points={P})"
+            err = max(err, e)
+    log(f"phase2 decode_scan: bit-equal on the edge corpus ({len(nbits)} streams, both forms, "
+        f"max_points {SCAN_CUTS})")
+    return err
+
+
+def extract_edge_checks(seed: int, dev) -> int:
+    """Phase 2's small shapes of kernel #2 (``EXTRACT_EDGE_SHAPES``):
+    offsets rising in two halves from below 0, a non-monotone stretch,
+    negative and past W, every width class; bit-equal to plain."""
+    import torch
+
+    from m3_tpu_torch._bits import u64_to_torch
+    from m3_tpu_torch.parallel import decode_gather
+
+    err = 0
+    for S, W in EXTRACT_EDGE_SHAPES:
+        rng = np.random.default_rng(seed + S + 7 * W)
+        words = rng.integers(0, 1 << 64, (W, S), dtype=np.uint64)
+        words[-1:] = 0
+        F = 96
+        steps = rng.integers(0, 90, (F, S))
+        offs = np.cumsum(steps, axis=0) - 50
+        offs[F // 2:] = np.cumsum(steps[F // 2:], axis=0)
+        offs[10:20] = rng.integers(-300, W * 64 + 300, (10, S))
+        offs[-3:] = W * 64 + rng.integers(0, 500, (3, S))
+        widths = rng.integers(-3, 68, (F, S))
+        widths[0], widths[1], widths[2] = 0, 64, 1
+        w_t = u64_to_torch(words, dev)
+        o = torch.from_numpy(offs.astype(np.int32)).to(dev)
+        wd = torch.from_numpy(widths.astype(np.int32)).to(dev)
+        a = decode_gather.extract_fields64_t(w_t, o, wd)
+        b = decode_gather.extract_fields64_t_plain(w_t, o, wd)
+        err = max(err, int((a ^ b).abs().max()))
+        assert torch.equal(a, b), f"extract_fields64_t kernel != plain at S={S}, W={W}"
+    log(f"phase2 extract_fields64_t: bit-equal at (S, W) = {EXTRACT_EDGE_SHAPES}")
+    return err
+
+
+def decode_corpus_digest(dev) -> str:
+    """Phase 4: the pinned decode corpus decoded on the card (annotations
+    kept as points), hashed as ``tests/data/gen_decode_corpus.py``'s
+    ``canonical_digest``; the fused tail's outputs must equal the gather
+    tail's.  Returns the digest, held to the corpus's pinned sha256."""
+    import torch
+
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+
+    with open(ROOT / "tests" / "data" / "decode_corpus.json") as fh:
+        doc = json.load(fh)
+    streams = [base64.b64decode(x) for x in doc["streams"]]
+    ts, vals, counts, fb = mt.decode_batch(streams, doc["max_points"],
+                                           annotations_fallback=False, device=dev)
+    assert not fb.any()
+    h = hashlib.sha256()
+    for i, n in enumerate(counts):
+        h.update(np.int64(n).tobytes())
+        h.update(ts[i, :n].astype(np.int64).tobytes())
+        h.update(vals[i, :n].copy().view(np.uint64).tobytes())
+    words, nbits = mt.pack_streams(streams)
+    tails = [mt.decode_batch_device(torch.from_numpy(words.view(np.int64)),
+                                    torch.from_numpy(nbits), doc["max_points"], device=dev,
+                                    chains=ch) for ch in ("gather", "fused")]
+    assert all(torch.equal(a, b) for a, b in zip(*tails)), "fused tail != gather tail"
+    assert h.hexdigest() == doc["sha256"], (h.hexdigest(), doc["sha256"])
+    return h.hexdigest()
 
 
 T0_AGG = 1_700_000_040 * SEC  # a minute boundary
@@ -1610,21 +1790,22 @@ def oracle_hq(ubs, rates, q):
 
 def zero_launches() -> None:
     """Every kernel wrapper's launch count to 0."""
-    from m3_tpu_torch.parallel import decode_gather, encode_place
+    from m3_tpu_torch.parallel import decode_gather, decode_scan, encode_place
     from m3_tpu_torch.parallel import segment_ingest as si
 
-    encode_place.launches = decode_gather.launches = 0
+    encode_place.launches = decode_gather.launches = decode_scan.launches = 0
     for k in si.KERNELS:
         si.launches[k] = 0
 
 
 def read_launches() -> dict:
     """Every kernel wrapper's launch count, by kernel name."""
-    from m3_tpu_torch.parallel import decode_gather, encode_place
+    from m3_tpu_torch.parallel import decode_gather, decode_scan, encode_place
     from m3_tpu_torch.parallel import segment_ingest as si
 
     return {**si.launches, "place_words": encode_place.launches,
-            "extract_fields64_t": decode_gather.launches}
+            "extract_fields64_t": decode_gather.launches,
+            "decode_scan": decode_scan.launches}
 
 
 class HostClock:
@@ -7579,8 +7760,9 @@ class HostKept:
     none of the copying, and held off the card, so no device memory is
     held across the pass.  ``check`` then launches the kernel again on
     device copies of each kept call's inputs and holds its result against
-    ``plain`` run on the host copies, bit for bit: the returned tensor, or
-    with ``cols`` the first ``cols`` arguments (in-place columns).
+    ``plain`` run on the host copies, bit for bit: every returned tensor
+    (a tuple's, nested), or with ``cols`` the first ``cols`` arguments
+    (in-place columns).
 
     A call made inside a counted run (``costwatch.counting()``) and
     labelled with its stage by ``tag`` is also counted in ``check``: the
@@ -7592,7 +7774,7 @@ class HostKept:
 
     def __init__(self, owner, attr: str, plain, cols: int = 0):
         self.owner, self.attr, self.plain, self.cols = owner, attr, plain, cols
-        self.calls: list = []  # [inputs, counted, stage]
+        self.calls: list = []  # [inputs, keyword arguments, counted, stage]
         self.deltas: dict = {}
 
     def __enter__(self):
@@ -7602,12 +7784,12 @@ class HostKept:
 
         fn = self.fn = getattr(self.owner, self.attr)
 
-        def kept(*a):
+        def kept(*a, **kw):
             counted = costwatch.counting()
             with costwatch.uncounted():
                 self.calls.append([tuple(x.to("cpu", copy=True) if isinstance(x, torch.Tensor)
-                                         else x for x in a), counted, None])
-            return fn(*a)
+                                         else x for x in a), kw, counted, None])
+            return fn(*a, **kw)
 
         setattr(self.owner, self.attr, kept)
         return self
@@ -7619,8 +7801,8 @@ class HostKept:
     def tag(self, stage: str) -> None:
         """Label every call not yet labelled as ``stage``'s."""
         for c in self.calls:
-            if c[2] is None:
-                c[2] = stage
+            if c[3] is None:
+                c[3] = stage
 
     def _account(self, stage: str, launched: dict, plain: dict) -> None:
         from collections import Counter
@@ -7642,17 +7824,18 @@ class HostKept:
 
         dup = lambda a, to=None: [(x.to(to) if to else x.clone())
                                   if isinstance(x, torch.Tensor) else x for x in a]
+        flat = lambda x: [x] if isinstance(x, torch.Tensor) else [t for y in x for t in flat(y)]
         err, n = 0.0, len(self.calls)
-        for a, counted, stage in self.calls:
+        for a, kw, counted, stage in self.calls:
             on_dev, host = dup(a, dev), dup(a)
             with costwatch.census() as launched:
-                got = self.fn(*on_dev)
-            want = self.plain(*host)
+                got = self.fn(*on_dev, **kw)
+            want = self.plain(*host, **kw)
             if self.cols:
                 pairs = [(d, h) for d, h in zip(on_dev[:self.cols], host[:self.cols])
                          if d is not None]
             else:
-                pairs = [(got, want)]
+                pairs = list(zip(flat(got), flat(want)))
             for d, h in pairs:
                 d = d.cpu()
                 assert same_bits(d, h), f"{self.attr} kernel != plain on a stage's inputs"
@@ -7660,7 +7843,7 @@ class HostKept:
             if counted and stage is not None:
                 again = dup(a)
                 with costwatch.census() as plain:
-                    self.fn(*again)  # the wrapper on the host: its plain version
+                    self.fn(*again, **kw)  # the wrapper on the host: its plain version
                 self._account(stage, launched.records(), plain.records())
         self.calls.clear()
         return n, err
@@ -7721,7 +7904,7 @@ def census_on_card(dev, card: str) -> dict:
     import contextlib
 
     from m3_tpu_torch.encoding import m3tsz_torch as mt
-    from m3_tpu_torch.parallel import decode_gather, encode_place
+    from m3_tpu_torch.parallel import decode_gather, decode_scan, encode_place
     from m3_tpu_torch.parallel import segment_ingest as si
     from m3_tpu_torch.tools import costs
     from m3_tpu_torch.x import costwatch
@@ -7732,7 +7915,8 @@ def census_on_card(dev, card: str) -> dict:
             "segment_ingest": HostKept(si, "segment_ingest_into",
                                        si.segment_ingest_into_plain, cols=3),
             "segment_minmax": HostKept(si, "segment_minmax_into",
-                                       si.segment_minmax_into_plain, cols=2)}
+                                       si.segment_minmax_into_plain, cols=2),
+            "decode_scan": HostKept(mt, "decode_scan", decode_scan.decode_scan_plain)}
     zero_launches()
     arts, walls = [], []
     with contextlib.ExitStack() as stack:
@@ -7923,7 +8107,7 @@ def measuring_records(kernels: list, got: dict, card: str) -> None:
     for k in kernels:
         name = k["name"]
         k["measure_launches"] = got["launches"][name]
-        k["max_abs_err"] = max(k["max_abs_err"], got["max_abs_err"][name])
+        k["max_abs_err"] = max(k["max_abs_err"], got["max_abs_err"].get(name, 0))
     assert all(k["measure_launches"] > 0 for k in kernels), got["launches"]
     log(f"phase25 [{card}] launches on its path: {got['launches']}")
 
@@ -8006,7 +8190,7 @@ def irlint_on_card(dev, card: str) -> dict:
     import contextlib
 
     from m3_tpu_torch.encoding import m3tsz_torch as mt
-    from m3_tpu_torch.parallel import decode_gather, encode_place
+    from m3_tpu_torch.parallel import decode_gather, decode_scan, encode_place
     from m3_tpu_torch.parallel import segment_ingest as si
     from m3_tpu_torch.tools import costs
     from m3_tpu_torch.x import costwatch, irlint
@@ -8017,7 +8201,8 @@ def irlint_on_card(dev, card: str) -> dict:
             "segment_ingest": HostKept(si, "segment_ingest_into",
                                        si.segment_ingest_into_plain, cols=3),
             "segment_minmax": HostKept(si, "segment_minmax_into",
-                                       si.segment_minmax_into_plain, cols=2)}
+                                       si.segment_minmax_into_plain, cols=2),
+            "decode_scan": HostKept(mt, "decode_scan", decode_scan.decode_scan_plain)}
 
     def on_stage(name, _seconds):
         for r in recs.values():
@@ -8291,7 +8476,7 @@ def gates_records(kernels: list, got: dict, card: str) -> None:
     for k in kernels:
         name = k["name"]
         k["gate_launches"] = got["launches"][name]
-        k["max_abs_err"] = max(k["max_abs_err"], got["max_abs_err"][name])
+        k["max_abs_err"] = max(k["max_abs_err"], got["max_abs_err"].get(name, 0))
     assert all(k["gate_launches"] > 0 for k in kernels), got["launches"]
     log(f"phase26 [{card}] launches on its path: {got['launches']}")
 
@@ -8558,9 +8743,7 @@ def cli_on_soak(soak: dict, dev, card: str) -> dict:
     t_cli = time.perf_counter() - t0
 
     # the same segments on the card
-    for name in si.KERNELS:
-        si.launches[name] = 0
-    encode_place.launches = decode_gather.launches = 0
+    zero_launches()
     hist_n, hist_pts = soak["hist"]
     n_segs = n_pts = n_hist = same_bytes = 0
     misses, partial, full = [], [], set()
@@ -8623,8 +8806,7 @@ def cli_on_soak(soak: dict, dev, card: str) -> dict:
                         same_bytes += 1
                     elif len(misses) < 5:
                         misses.append((k, ns, bs, rows[r][2].decode(), rows[r][3].hex(), got.hex()))
-    launches = {"place_words": encode_place.launches,
-                "extract_fields64_t": decode_gather.launches, **si.launches}
+    launches = read_launches()
     log(f"phase27 (c) [{card}] decode_batch on the card: {n_segs} segments, {n_pts} points, "
         f"equal to the CLI's scalar decode; {n_hist} historical series equal to the ledger; "
         f"kernel #2 {ext.calls} launches, kernel #1 {place.calls}, each bit-equal to plain")
@@ -8739,7 +8921,7 @@ def dtest_records(kernels: list, got: dict, card: str) -> None:
     for k in kernels:
         name = k["name"]
         k["dtest_launches"] = got["launches"][name]
-        k["max_abs_err"] = max(k["max_abs_err"], got["max_abs_err"][name])
+        k["max_abs_err"] = max(k["max_abs_err"], got["max_abs_err"].get(name, 0))
     log(f"phase27 [{card}] launches on its path: {got['launches']}")
 
 
@@ -8932,13 +9114,14 @@ def native_records(kernels: list, got: dict, card: str) -> None:
     for k in kernels:
         name = k["name"]
         k["native_launches"] = got["launches"][name]
-        k["max_abs_err"] = max(k["max_abs_err"], got["max_abs_err"][name])
+        k["max_abs_err"] = max(k["max_abs_err"], got["max_abs_err"].get(name, 0))
     log(f"phase28 [{card}] launches on its path: {got['launches']}")
 
 
 # ---- lanes: phases in processes of their own, beside the main one ----
 
-KERNEL_NAMES = ("place_words", "extract_fields64_t", "segment_ingest", "segment_minmax")
+KERNEL_NAMES = ("place_words", "extract_fields64_t", "segment_ingest", "segment_minmax",
+                "decode_scan")
 LANE_THREADS = 2  # torch's CPU threads in a lane: four processes share the host
 _LANE: dict = {}
 
@@ -9110,7 +9293,7 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
 
     from m3_tpu_torch.core.xtime import Unit
     from m3_tpu_torch.encoding import m3tsz_torch as mt
-    from m3_tpu_torch.parallel import _cuda, decode_gather, encode_place
+    from m3_tpu_torch.parallel import _cuda, decode_gather, decode_scan, encode_place
     from m3_tpu_torch.parallel import segment_ingest as si
 
     dev = torch.device("cuda")
@@ -9122,7 +9305,7 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    names = [encode_place.KERNEL, decode_gather.KERNEL, *si.KERNELS]
+    names = [encode_place.KERNEL, decode_gather.KERNEL, decode_scan.KERNEL, *si.KERNELS]
     _cuda.build(names)
     log(f"phase1 build: {time.perf_counter() - t0:.1f} s ({len(names)} nvcc in parallel)")
     for name in names:
@@ -9162,6 +9345,9 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
 
     del frags, keys, onebit, words_t, offs, widths, a, b
     torch.cuda.empty_cache()
+    ext_err = max(ext_err, extract_edge_checks(args.seed, dev))
+    scan_err_max = scan_edge_checks(args.seed, dev)
+    torch.cuda.empty_cache()
 
     # ---- phase 3: the main path ----
     ts, vals, starts = make_batch(args.seed, S, T)
@@ -9184,12 +9370,23 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
             return fn(*a)
         return rec
 
-    orig = (mt.place_words, mt.extract_fields64_t)
+    def keep_scan(*a, **kw):
+        seen["decode_scan"] = (a, kw)
+        return orig[2](*a, **kw)
+
+    card_steps = []  # _decode_step calls on a card tensor: none may run
+
+    def watch_step(carry, words, *a):
+        if words.is_cuda:
+            card_steps.append(words.shape)
+        return orig[3](carry, words, *a)
+
+    orig = (mt.place_words, mt.extract_fields64_t, mt.decode_scan, mt._decode_step)
     mt.place_words = keep_args("place_words", orig[0])
     mt.extract_fields64_t = keep_args("extract_fields64_t", orig[1])
+    mt.decode_scan, mt._decode_step = keep_scan, watch_step
     torch.cuda.reset_peak_memory_stats()
-    encode_place.launches = 0
-    decode_gather.launches = 0
+    zero_launches()
     enc_t: dict = {}
     dec_t: dict = {}
     t0 = time.perf_counter()
@@ -9197,17 +9394,23 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
                                   timings=enc_t)
     torch.cuda.synchronize()
     enc_s = time.perf_counter() - t0
+    enc_launches = read_launches()
     t0 = time.perf_counter()
     dts, dvals, counts, dfb = mt.decode_batch(streams, T, device=dev,
                                               timings=dec_t)
     torch.cuda.synchronize()
     dec_s = time.perf_counter() - t0
-    launches = {"place_words": encode_place.launches,
-                "extract_fields64_t": decode_gather.launches}
+    launches = {k: v for k, v in read_launches().items()
+                if k in ("place_words", "extract_fields64_t", "decode_scan")}
     peak = torch.cuda.max_memory_allocated()
-    mt.place_words, mt.extract_fields64_t = orig
+    mt.place_words, mt.extract_fields64_t, mt.decode_scan, mt._decode_step = orig
     log(f"phase3 launches on the main path: {launches}")
     assert all(v > 0 for v in launches.values()), launches
+    dec_launches = {k: launches[k] - enc_launches[k] for k in launches}
+    assert dec_launches == {"place_words": 0, "extract_fields64_t": 1, "decode_scan": 1}, \
+        dec_launches
+    assert not card_steps, f"_decode_step ran on card tensors {len(card_steps)} times"
+    log(f"phase3 the decode pass: {dec_launches}, no _decode_step on a card tensor")
 
     share = float(fb.mean())
     log(f"phase3 fallback share: {share:.5f} ({int(fb.sum())} of {S})")
@@ -9248,6 +9451,8 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
     h.update(np.ascontiguousarray(pn).tobytes())
     assert h.hexdigest() == PINNED_ENCODE_DIGEST, h.hexdigest()
     log("phase4 pinned encode digest: match")
+    log(f"phase4 pinned decode corpus on the card: sha256 {decode_corpus_digest(dev)} as "
+        "pinned, the fused tail equal to the gather tail")
 
     # ---- phase 5: times (kernel launches here do not count) ----
     frags, keys, w_out = seen["place_words"]
@@ -9273,8 +9478,32 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
         lambda: decode_gather.extract_fields64_t_plain(words_t, offs, widths))
     # each input read once, the output written once
     ext_bytes = offs.numel() * (4 + 4 + 8) + words_t.numel() * 8
-    log("phase5 both kernels bit-equal to their plain versions on the "
-        "main path's own inputs")
+    # the same bytes through a copy: what the card's memory gives a plain stream
+    src64 = torch.empty((offs.shape[0], offs.shape[1]), dtype=torch.int64, device=dev)
+    dst64 = torch.empty_like(src64)
+    ext_copy_ms = cuda_ms(lambda: dst64.copy_(src64))
+    del src64, dst64
+    (wpad, nb, unit0, tbl, P), _ = seen["decode_scan"]
+    scan_t = {}
+    for fused in (False, True):
+        got = decode_scan.decode_scan(wpad, nb, unit0, tbl, P, fused=fused)
+        torch.cuda.synchronize()
+        ea, eb = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ea.record()
+        want = decode_scan.decode_scan_plain(wpad, nb, unit0, tbl, P, fused)
+        eb.record()
+        torch.cuda.synchronize()
+        e = scan_err(got, want)
+        assert e == 0, f"decode_scan kernel != plain on main-path inputs (fused={fused})"
+        scan_err_max = max(scan_err_max, e)
+        del got, want
+        scan_t[fused] = {
+            "ms": cuda_ms(lambda f=fused: decode_scan.decode_scan(wpad, nb, unit0, tbl, P,
+                                                                 fused=f)),
+            "plain_ms": ea.elapsed_time(eb),
+            "bound_ms": scan_bytes(wpad, nb, P, fused) / HBM_BYTES_PER_S * 1e3}
+    log("phase5 the three codec kernels bit-equal to their plain versions on the "
+        "main path's own inputs (the decode scan in both forms)")
     dp = S * T
     log(f"phase5 [{card}] encode {dp / enc_s:,.0f} dp/s ({enc_s:.2f} s: "
         f"phase1 {enc_t['phase1']:.2f} s, phase2 {enc_t['phase2']:.3f} s, "
@@ -9297,13 +9526,22 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
          "launches": launches["extract_fields64_t"], "max_abs_err": ext_err,
          "ms": ext_ms, "plain_ms": ext_plain_ms,
          "bound_ms": ext_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-         "library_ms": None},
+         "library_ms": None, "copy_ms": ext_copy_ms},
+        # replaces no Pallas kernel: the reference's lax.scan over _decode_step
+        {"name": "decode_scan", "route": "cuda",
+         "source": "m3_tpu_torch/csrc/decode_scan.cu",
+         "replaces": "m3_tpu/encoding/m3tsz_jax.py:1134",
+         "launches": launches["decode_scan"], "max_abs_err": scan_err_max,
+         "ms": scan_t[False]["ms"], "plain_ms": scan_t[False]["plain_ms"],
+         "bound_ms": scan_t[False]["bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "fused_ms": scan_t[True]["ms"], "fused_plain_ms": scan_t[True]["plain_ms"],
+         "fused_bound_ms": scan_t[True]["bound_ms"]},
     ]
     for k in kernels:
         log(f"phase5 [{card}] {k['name']}: {k['ms']:.3f} ms, bound "
             f"{k['bound_ms']:.3f} ms ({k['bound_by']}), plain {k['plain_ms']:.3f} ms, "
             f"library {k['library_ms']}, launches/pass {k['launches']}")
-    del seen, a, b, words_t, offs, widths, streams, dts, dvals
+    del seen, a, b, words_t, offs, widths, streams, dts, dvals, wpad, nb, unit0
     torch.cuda.empty_cache()
 
     # ---- phases 6-9: the aggregator ----
@@ -9342,15 +9580,12 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
     # ---- phases 10-11: the aggregator on the default (packed) layout ----
     t0 = time.perf_counter()
     agg_drive(args.seed + 7, 20_000, dev, card, "warm-up")  # lazy inits, same path
-    for k in si.KERNELS:
-        si.launches[k] = 0
-    encode_place.launches = decode_gather.launches = 0
+    zero_launches()
     torch.cuda.reset_peak_memory_stats()
     packed_t, packed_got = agg_drive(args.seed, args.agg_series, dev, card, "phase10")
     packed_peak = torch.cuda.max_memory_allocated()
-    launched = {**si.launches, "place_words": encode_place.launches,
-                "extract_fields64_t": decode_gather.launches}
-    log(f"phase10 launches of the four kernels on the packed path: {launched}")
+    launched = read_launches()
+    log(f"phase10 launches of the five kernels on the packed path: {launched}")
     assert not any(launched.values()), launched
     worst = cross_layout_check(packed_got, f64_got)
     log(f"phase10 consume == the f64 run of phase 7 within the cross-layout envelopes "
@@ -9420,7 +9655,7 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
     spans["phase20"] = ("main", w0, time.time())
     for k in kernels:
         k["mesh_launches"] = mesh_launched[k["name"]]
-        k["max_abs_err"] = max(k["max_abs_err"], mesh_err[k["name"]])
+        k["max_abs_err"] = max(k["max_abs_err"], mesh_err.get(k["name"], 0))
     torch.cuda.empty_cache()
 
     # ---- phase 17: the aggregator's entry point, forwarding ----

@@ -11,13 +11,16 @@ Same two-phase formulation as the JAX reference, with the same names:
   (``m3_tpu_torch.parallel.encode_place.place_words``: a CUDA kernel on
   the card, its plain version on the CPU).
 * **Decode.**  Phase 1 (``_decode_step``) walks the control bits and
-  emits per-datapoint (offset, width, flags) lane tables; phase 2
-  (``_phase2``, the reference's ``gather`` chains tail) extracts every
-  field at once (``m3_tpu_torch.parallel.decode_gather``: a CUDA kernel
-  on the card) and rebuilds the three value chains.  The reference's
-  other tail, ``fused``, rebuilds the chains inside the scan itself from
-  the words the step has read; it has no kernel in either package and
-  runs here as plain tensor ops (``decode_batch_device(chains=...)``).
+  emits per-datapoint (offset, width, flags) lane tables; the
+  reference's ``lax.scan`` over it is ``m3_tpu_torch.parallel
+  .decode_scan`` (one CUDA kernel launch on the card, the Python loop of
+  steps on the CPU).  Phase 2 (``_phase2``, the reference's ``gather``
+  chains tail) extracts every field at once
+  (``m3_tpu_torch.parallel.decode_gather``: a CUDA kernel on the card)
+  and rebuilds the three value chains.  The reference's other tail,
+  ``fused``, rebuilds the chains inside the scan itself from the words
+  the step has read (``decode_batch_device(chains=...)``; the scan
+  kernel's second form on the card).
 
 All u64 words ride ``int64`` tensors (``m3_tpu_torch._bits``), and the
 float64 arithmetic of the format runs as exact integer emulation
@@ -53,6 +56,7 @@ from m3_tpu_torch.encoding.bitstream import OStream
 from m3_tpu_torch.encoding.scheme import (
     ANNOTATION_MARKER, tail_bytes, write_special_marker)
 from m3_tpu_torch.parallel.decode_gather import extract_fields64_t
+from m3_tpu_torch.parallel.decode_scan import decode_scan
 from m3_tpu_torch.parallel.encode_place import place_words
 from m3_tpu_torch.x import devguard, membudget
 
@@ -1133,16 +1137,18 @@ def _decode_batch_device(words, nbits, max_points: int, default_unit: int = 1,
                          chains: str = "auto", scan_major: bool = False,
                          ctrl_tbl=None):
     """Decode (S, W) stream words (int64 carriers of big-endian u64
-    words) in two phases: the bit-boundary scan (``_decode_step``), then
-    field extraction + chain reconstruction, by one of two tails that
-    give the same bits (``chains``, see ``resolved_chains``):
+    words) in two phases: the bit-boundary scan
+    (``parallel/decode_scan``: the scan kernel on the card, the loop of
+    ``_decode_step`` on the CPU), then field extraction + chain
+    reconstruction, by one of two tails that give the same bits
+    (``chains``, see ``resolved_chains``):
 
     ``gather``  ``_phase2`` after the scan: every field extracted at once
                 (kernel #2 on the card), then the chains over the point
                 axis.
     ``fused``   the chains ride the scan itself (``_decode_step`` with
-                ``unit_tbl``), from the words each step has read; plain
-                tensor ops.
+                ``unit_tbl``; the scan kernel's fused form on the card),
+                from the words each step has read.
 
     Returns (ts (S, P) int64, payload (S, P) int64 (u64 bits),
     meta (S, P) uint8, err (S,), prec (S,), ann (S,)); the three (S, P)
@@ -1156,8 +1162,7 @@ def _decode_batch_device(words, nbits, max_points: int, default_unit: int = 1,
     dev = resolve_device(device)
     t0 = time.perf_counter()  # m3lint: disable=jit-purity — timings= origin; feeds no tensor
     words = torch.as_tensor(words, dtype=I64).to(dev)
-    nbits = torch.as_tensor(nbits, dtype=I64).to(dev)
-    S = words.shape[0]
+    nbits = torch.as_tensor(nbits, dtype=I64).to(dev).contiguous()
     wpad = torch.nn.functional.pad(words, (0, _PAD_WORDS))
     # the per-series initial unit depends only on the start's alignment
     aligned = (wpad[:, 0] % Unit(default_unit).nanos()) == 0
@@ -1165,28 +1170,11 @@ def _decode_batch_device(words, nbits, max_points: int, default_unit: int = 1,
     if ctrl_tbl is None:
         ctrl_tbl = value_ctrl_table(dev)
 
-    P = max_points
     fused = chains == "fused"
-    if fused:
-        unit_tbl = torch.from_numpy(_UNIT_NANOS).to(dev)
-        lanes = [torch.empty((P, S), dtype=dt, device=dev) for dt in (I64, I64, torch.uint8)]
-        carry = _decode_carry0(S, dev, base_time=wpad[:, 0])
-    else:
-        unit_tbl = None
-        lanes = [torch.empty((P, S), dtype=I32, device=dev) for _ in range(4)]
-        carry = _decode_carry0(S, dev)
-    for i in range(P):
-        carry, out = _decode_step(carry, wpad, nbits, unit0, ctrl_tbl, unit_tbl)
-        for tbl, o in zip(lanes, out):
-            tbl[i] = o
-
-    # A stream whose EOS marker sits exactly after max_points datapoints
-    # never sets done inside the scan; peek once more for it.
-    cursor, done = carry[0], carry[1]
-    peek11 = _peek(wpad, cursor, 11)
-    done = done | (((cursor + 11) <= nbits) & ((peek11 >> 2) == 0x100)
-                   & ((peek11 & 3) == 0))
-    err = carry[2] | ~done  # not done after max_points -> error
+    # phase 1: the scan (kernel on the card, the step loop on the CPU);
+    # its done already holds the EOS peek after the last slot
+    lanes, carry = decode_scan(wpad, nbits, unit0, ctrl_tbl, max_points, fused=fused)
+    err = carry[2] | ~carry[1]  # not done after max_points -> error
     t0 = _mark(timings, "phase1", dev, t0)
 
     if fused:

@@ -3,8 +3,9 @@ counterpart of ``m3_tpu/native/_build.py``.
 
 Each source in ``m3_tpu_torch/csrc`` compiles on first use with ``g++``
 into ``build/m3_tpu_torch/`` under the checkout (listed in
-``.gitignore``); the library's name carries a hash of the source and the
-flags, so it is rebuilt only when either changes.  ``load_native``
+``.gitignore``); the library's name carries a hash of the source (with
+the ``csrc/*.cuh`` headers it includes) and the flags, so it is rebuilt
+only when one of them changes.  ``load_native``
 returns a loaded CDLL, or None when the toolchain or the artifact is
 unusable — the JAX package's contract, which lets ``MetricMap`` keep its
 ``use_native=None`` semantics.  Nothing here runs at import time.
@@ -39,7 +40,10 @@ def load_native(src_name: str, extra_flags: tuple = ()):
         src = SRC_DIR / src_name
         code = src.read_bytes()
         flags = ("-O2", *extra_flags, "-shared", "-fPIC")
-        h = hashlib.sha256(code + " ".join(flags).encode())
+        # the headers of csrc/ that the source includes count as its source
+        deps = [p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh"))
+                if f'#include "{p.name}"'.encode() in code]
+        h = hashlib.sha256(b"".join([code, *deps]) + " ".join(flags).encode())
         so = BUILD_DIR / f"{Path(src_name).stem}-{h.hexdigest()[:16]}.so"
         if not so.exists():  # announced before the cache entry: a hook may refuse
             devseams.building(src_name, code, flags)

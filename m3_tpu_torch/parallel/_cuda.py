@@ -2,8 +2,9 @@
 
 Each source compiles on first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, which ``ctypes`` loads.  The
-library's name carries a hash of its source and flags, so a library is
-rebuilt only when either changes.  Libraries and the compiler's
+library's name carries a hash of its source (with the ``csrc/*.cuh``
+headers it includes) and flags, so a library is rebuilt only when one of
+them changes.  Libraries and the compiler's
 ``-Xptxas -v`` report go to ``build/m3_tpu_torch/`` under the checkout
 (listed in ``.gitignore``).  Nothing here runs at import time.
 """
@@ -41,7 +42,11 @@ def _nvcc() -> str:
 
 def _paths(name: str) -> tuple[Path, Path, Path]:
     src = SRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    code = src.read_bytes()
+    # the headers of csrc/ that the source includes count as its source
+    deps = [p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh"))
+            if f'#include "{p.name}"'.encode() in code]
+    h = hashlib.sha256(b"".join([code, *deps]) + " ".join(NVCC_FLAGS).encode())
     stem = f"{name}-{h.hexdigest()[:16]}"
     return src, BUILD_DIR / f"{stem}.so", BUILD_DIR / f"{stem}.ptxas.txt"
 

@@ -70,7 +70,8 @@ def _lib():
 def extract_fields64_t(words_t, offs_t, widths_t):
     """(W, S) int64 words, (F, S) int32 offsets and widths -> (F, S)
     int64 fields.  CPU tensors: the plain version; CUDA tensors: the
-    kernel (one thread per lane)."""
+    kernel (one thread per series, walking its fields in chunks whose
+    words it stages in shared memory)."""
     global launches
     _check(words_t, offs_t, widths_t)
     if words_t.device.type == "cpu":

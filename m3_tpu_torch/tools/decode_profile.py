@@ -4,12 +4,13 @@ goes — the counterpart of ``m3_tpu/tools/decode_profile.py``.
 The method is the reference's: decompose a codec pass into structural
 layers by running PROXY loops that share the real codec's carry and
 replay the true per-step work, each layer adding one structural cost,
-so that the deltas between consecutive layers attribute the time.  The
-port's phase 1 is a Python loop of torch ops (one step per datapoint),
-so its proxies are Python loops of torch ops too, over the carries of
-``m3tsz_torch._decode_step`` and ``_encode_step``.
+so that the deltas between consecutive layers attribute the time.  Where
+the port's phase 1 is a Python loop of torch ops (one step per
+datapoint), its proxies are Python loops of torch ops too, over the
+carries of ``m3tsz_torch._decode_step`` and ``_encode_step``.
 
-``--mode decode`` (the default):
+``--mode decode`` (the default) on the CPU, where the decode's scan is
+the loop of ``_decode_step``:
 
   carry    the loop and the carry round-trip only: the cursor advances
            by the TRUE per-step advances captured from a real decode
@@ -20,8 +21,13 @@ so its proxies are Python loops of torch ops too, over the carries of
            reads, the value-control table gather and the two 64-bit
            payload funnels
   full     the production decode (``chains="gather"``, scan-major): phase
-           1, then the gather tail (kernel #2 on the card), whose own
-           seconds are ``gather_tail``
+           1, then the gather tail, whose own seconds are ``gather_tail``
+
+On a card the scan is one launch of the scan kernel
+(``parallel/decode_scan``), so no loop is left to take apart: ``scan``
+is that launch alone on the same streams, and ``full`` the production
+decode (the scan, then the gather tail with kernel #2); the attribution
+keys are ``scan_kernel`` and ``gather_tail_and_rest``.
 
 ``--mode encode``: ``carry`` (the loop with live lane outputs),
 ``classify`` (+ the decimal search, ``classify_value``), ``phase1`` (the
@@ -67,6 +73,7 @@ import torch
 from m3_tpu_torch import native, resolve_device
 from m3_tpu_torch._bits import shl, shr
 from m3_tpu_torch.encoding import m3tsz_torch as mt
+from m3_tpu_torch.parallel import decode_scan
 from m3_tpu_torch.x import costwatch
 
 I32 = mt.I32
@@ -149,7 +156,11 @@ def _prep(words, nbits):
 
 def capture_cursors(words, nbits, max_points: int):
     """Run the real phase-1 step, capturing the cursor after every step:
-    (max_points, S) int64 (the reference's ``_capture_cursors``)."""
+    (max_points, S) int64 (the reference's ``_capture_cursors``).  The
+    plain step runs on CPU tensors only: on a card the decode's steps
+    are the scan kernel's, and no ``_decode_step`` runs there."""
+    if words.device.type != "cpu":
+        raise ValueError("capture_cursors replays the plain step: CPU tensors only")
     S = words.shape[0]
     wpad, nb, unit0 = _prep(words, nbits)
     tbl = mt.value_ctrl_table(words.device)
@@ -236,39 +247,45 @@ def profile(S: int, T: int, device=None, corpus=None, packed=None,
     t_fused = _time(lambda: mt._decode_batch_device(
         words, nbits, max_points, device=dev, chains="fused", scan_major=True), dev, 1)
 
-    # true per-step advances, replayed by every proxy
-    cursors = capture_cursors(words, nbits, max_points)
-    advances = torch.diff(cursors, dim=0, prepend=torch.zeros_like(cursors[:1]))
-    wpad, _, _ = _prep(words, nbits)
+    wpad, nb, unit0 = _prep(words, nbits)
     tbl = mt.value_ctrl_table(dev)
     ops = {}
-    for mode in ("carry", "reads"):
-        layers[mode] = _time(lambda m=mode: proxy_decode(wpad, advances, tbl, m), dev, reps)
-        ops[mode] = _per_step(lambda k, m=mode: proxy_decode(wpad, advances, tbl, m, k))
+    if dev.type == "cuda":  # phase 1 is one launch of the scan kernel
+        def scan(steps=max_points):
+            return decode_scan.decode_scan(wpad, nb, unit0, tbl, steps)
+
+        layers["scan"] = _time(scan, dev, reps)
+        ops["scan"] = _per_step(scan)
+        parts = (("scan_kernel", layers["scan"]),
+                 ("gather_tail_and_rest", layers["full"] - layers["scan"]))
+        ceilings = {"ceiling_if_scan_only": round(S * T / max(layers["scan"], 1e-9))}
+    else:
+        # true per-step advances, replayed by every proxy
+        cursors = capture_cursors(words, nbits, max_points)
+        advances = torch.diff(cursors, dim=0, prepend=torch.zeros_like(cursors[:1]))
+        for mode in ("carry", "reads"):
+            layers[mode] = _time(lambda m=mode: proxy_decode(wpad, advances, tbl, m), dev,
+                                 reps)
+            ops[mode] = _per_step(lambda k, m=mode: proxy_decode(wpad, advances, tbl, m, k))
+        t_carry = layers["carry"]
+        parts = (("scan_carry_roundtrip", t_carry),
+                 ("bit_read_funnels", layers["reads"] - layers["carry"]),
+                 ("parse_arithmetic_and_outputs", layers["full"] - layers["reads"]))
+        ceilings = {"ceiling_if_arith_free": round(S * T / max(layers["reads"], 1e-9)),
+                    "ceiling_if_only_carry": round(S * T / max(t_carry, 1e-9))}
     ops["full"] = _per_step(lambda k: full(k))
 
-    t_carry = layers["carry"]
-    t_reads = layers["reads"] - layers["carry"]
-    t_arith = layers["full"] - layers["reads"]
     out["seconds"] = {k: round(v, 4) for k, v in layers.items()}
     out["seconds"]["gather_tail"] = round(gather_tail, 4)
     out["seconds"]["full_series_major"] = round(t_series_major, 4)
     out["seconds"]["full_fused_tail"] = round(t_fused, 4)
-    out["attribution_s"] = {
-        "scan_carry_roundtrip": round(t_carry, 4),
-        "bit_read_funnels": round(t_reads, 4),
-        "parse_arithmetic_and_outputs": round(t_arith, 4),
-    }
-    out["attribution_pct"] = {
-        k: round(100 * v / layers["full"], 1)
-        for k, v in (("scan_carry_roundtrip", t_carry), ("bit_read_funnels", t_reads),
-                     ("parse_arithmetic_and_outputs", t_arith))}
+    out["attribution_s"] = {k: round(v, 4) for k, v in parts}
+    out["attribution_pct"] = {k: round(100 * v / layers["full"], 1) for k, v in parts}
     out["dispatches_per_step"] = {k: v["per_step"] for k, v in ops.items()}
     out["dispatches_fixed"] = {k: v["fixed"] for k, v in ops.items()}
     out["dps"] = {
         "full": round(S * T / layers["full"]),
-        "ceiling_if_arith_free": round(S * T / max(layers["reads"], 1e-9)),
-        "ceiling_if_only_carry": round(S * T / max(t_carry, 1e-9)),
+        **ceilings,
         "full_series_major": round(S * T / t_series_major),
         "full_fused_tail": round(S * T / t_fused),
     }
@@ -277,9 +294,9 @@ def profile(S: int, T: int, device=None, corpus=None, packed=None,
         streams = _streams_of(words, nbits)
         _, t = _host_timed(lambda: native.decode_batch(streams, max_points))
         out["native_cpp_dps"] = round(S * T / t)
-    # the step's structural op count: every lane through every branch
-    wz, nb, unit0 = _prep(words, nbits)
-    step_ops = _count_ops(mt._decode_step, mt._decode_carry0(S, dev), wz, nb, unit0, tbl)
+    # the step's structural op count: every lane through every branch (on
+    # a card, one slot of the scan kernel)
+    step_ops = costwatch.decode_step_ops(wpad, nb, unit0, tbl)
     out["step_ops"] = step_ops
     out["element_ops_per_datapoint"] = step_ops
     out["sustained_element_ops_per_sec"] = round(step_ops * S * max_points / layers["full"])

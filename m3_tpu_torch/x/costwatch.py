@@ -53,11 +53,11 @@ from m3_tpu_torch import resolve_device
 from m3_tpu_torch.x import devseams, optext
 
 __all__ = [
-    "CANONICAL", "CONSTANT_BYTES", "DOCUMENTED_OPS_PER_DP", "GATED_METRICS",
-    "EXACT_METRICS", "STAGES", "STAGE_MAP", "STAGE_KERNELS", "Census", "Stage",
-    "CountedStage", "bench_corpus", "census", "clear_stage_cache",
-    "count_step_ops", "counted_stage", "counted_stages", "counting", "fingerprint_call",
-    "platform_config", "quiet_heap", "run_stages", "stage_names",
+    "CANONICAL", "CONSTANT_BYTES", "DOCUMENTED_CARD_OPS_PER_DP", "DOCUMENTED_OPS_PER_DP",
+    "GATED_METRICS", "EXACT_METRICS", "STAGES", "STAGE_MAP", "STAGE_KERNELS", "Census",
+    "Stage", "CountedStage", "bench_corpus", "census", "clear_stage_cache",
+    "count_step_ops", "counted_stage", "counted_stages", "counting", "decode_step_ops",
+    "fingerprint_call", "platform_config", "quiet_heap", "run_stages", "stage_names",
     "step_ops_crosscheck", "uncounted",
 ]
 
@@ -83,11 +83,16 @@ SEED = 42  # the registry's data
 # Dispatches of one phase-1 step at S = CANONICAL["S"], counted by the
 # census (:func:`step_ops_crosscheck` holds the live counts to them): the
 # decoder's gather-tail step and the encoder's lane-emission step.  The
-# port's own counts, not the reference's jaxpr equation counts.
+# port's own counts, not the reference's jaxpr equation counts.  On the
+# CPU each decode step is ``_decode_step``'s tensor ops; on a card every
+# step of the decode's scan runs inside one launch of the scan kernel, so
+# one step there is that launch at ``max_points=1`` with its wrapper's
+# ops (:func:`decode_step_ops`).
 DOCUMENTED_OPS_PER_DP = {
     "decode_step": 444,
     "encode_step": 1326,
 }
+DOCUMENTED_CARD_OPS_PER_DP = {**DOCUMENTED_OPS_PER_DP, "decode_step": 12}
 
 # Per-stage metrics the ratchet gates, in either direction.  The census
 # is exact, so counts gate exactly (EXACT_METRICS: one dispatch more is a
@@ -673,8 +678,9 @@ STAGE_MAP = {
 # The hand kernels each stage launches on the card, by the wrappers'
 # kernel names (``devseams.launched``); every other stage launches none.
 STAGE_KERNELS = {
-    "decode/gather": ("extract_fields",),
-    "decode/sharded": ("extract_fields",),
+    "decode/fused": ("decode_scan",),
+    "decode/gather": ("decode_scan", "extract_fields"),
+    "decode/sharded": ("decode_scan", "extract_fields"),
     "encode": ("place_words",),
     "encode/sharded": ("place_words",),
     "arena/counter_ingest_f64": ("segment_ingest", "segment_minmax"),
@@ -766,6 +772,24 @@ def run_stages(names=None, device=None, on_stage=None) -> Dict[str, dict]:
 # ---------------------------------------------------------------------------
 
 
+def decode_step_ops(wpad, nbits, unit0, tbl) -> int:
+    """Dispatches of one decode step as the tensors' device runs it (the
+    decoder's padded words, bit lengths, initial units and control
+    table): ``_decode_step``'s ops on the CPU; on a card, one slot of the
+    scan kernel (``decode_scan`` at ``max_points=1``: the launch and its
+    wrapper's ops).  Warmed first."""
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.parallel import decode_scan
+
+    if wpad.device.type == "cuda":
+        step = functools.partial(decode_scan.decode_scan, wpad, nbits, unit0, tbl, 1)
+        step()  # warm: the kernel's build and load
+        return count_step_ops(step)
+    carry = mt._decode_carry0(wpad.shape[0], wpad.device)
+    mt._decode_step(carry, wpad, nbits, unit0, tbl)  # warm
+    return count_step_ops(mt._decode_step, carry, wpad, nbits, unit0, tbl)
+
+
 def _decode_step_ops(dev) -> int:
     from m3_tpu_torch.encoding import m3tsz_torch as mt
 
@@ -774,10 +798,7 @@ def _decode_step_ops(dev) -> int:
     wpad = torch.nn.functional.pad(torch.from_numpy(words).to(dev), (0, mt._PAD_WORDS))
     nb = torch.from_numpy(nbits).to(dev)
     unit0 = torch.ones(S, dtype=torch.int64, device=dev)
-    carry = mt._decode_carry0(S, dev)
-    tbl = mt.value_ctrl_table(dev)
-    mt._decode_step(carry, wpad, nb, unit0, tbl)  # warm
-    return count_step_ops(mt._decode_step, carry, wpad, nb, unit0, tbl)
+    return decode_step_ops(wpad, nb, unit0, mt.value_ctrl_table(dev))
 
 
 def _encode_step_ops(dev) -> int:
@@ -799,7 +820,8 @@ def step_ops_crosscheck(stage_fps: Dict[str, dict], device=None) -> dict:
     out: dict = {}
     for key, live_fn, stage in (("decode", _decode_step_ops, "decode/gather"),
                                 ("encode", _encode_step_ops, "encode")):
-        doc = DOCUMENTED_OPS_PER_DP[f"{key}_step"]
+        doc = (DOCUMENTED_CARD_OPS_PER_DP if dev.type == "cuda"
+               else DOCUMENTED_OPS_PER_DP)[f"{key}_step"]
         live = live_fn(dev)
         rec = {"documented_ops_per_dp": doc, "census_step_ops": live,
                "census_vs_documented": round(live / doc, 3)}
@@ -811,7 +833,9 @@ def step_ops_crosscheck(stage_fps: Dict[str, dict], device=None) -> dict:
         out[key] = rec
     out["explanation"] = (
         "census_step_ops counts every aten op of one phase-1 step for all S "
-        "series at once (the eager loop runs one step per datapoint); a "
+        "series at once (the eager loop runs one step per datapoint; on a card "
+        "the decode's step is one slot of the scan kernel, its launch and its "
+        "wrapper's ops); a "
         "stage's dispatches_per_dp divides the whole pass's dispatches by S*T, "
         "so stage_vs_step near 1.0 says phase 1 is the pass, and the rest is "
         "phase 2 and the set-up.  Both come from the same census.")
