@@ -8,7 +8,7 @@ Run from the repository root with no arguments:
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-1. print the card's name and power limit; build the five CUDA kernels
+1. print the card's name and power limit; build the six CUDA kernels
    from ``m3_tpu_torch/csrc`` with nvcc for sm_90a (in parallel) and
    print their ``-Xptxas -v`` reports;
 2. hold each kernel against its plain PyTorch version on the card, bit
@@ -22,15 +22,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    unaligned start, int/float switches, first-point annotations,
    truncated, bit-flipped and random streams) at three ``max_points``
    (past every stream, exactly at the mix's EOS, short): every lane
-   table and the final carry;
+   table and the final carry; the encode scan, against its plain loop
+   on host copies, on an edge corpus (the CPU tests' mixed batch of
+   twelve value families with every dod bucket, both fallbacks,
+   unaligned starts and short and empty series, at 67 x 120, 130 x 1
+   and 3 x 9, and random 64-bit patterns, each in SECOND, MILLISECOND,
+   MICROSECOND and NANOSECOND; the Go golden streams' points re-encoded
+   in MILLISECOND under a SECOND default; the pinned batch): the lane
+   tables and the final carry;
 3. the main path: ``encode_batch`` then ``decode_batch`` on the card at
    S series x T points (the JAX package's flush setting ``out_words =
    max(16, T*40//64 + 8)``) over a seeded mix of counters, decimal gauges,
    dyadic random walks, constants and NaN-bearing series with jittered
    timestamps; every non-fallback series must round-trip exactly, the
-   fallback share must stay under 5 %, the three codec kernels must have
-   launched (the decode pass: one launch of the scan and one of kernel
-   #2, and no ``_decode_step`` on a card tensor), and a slice must give
+   fallback share must stay under 5 %, the four codec kernels must have
+   launched (the encode pass: one launch of the encode scan and one of
+   kernel #1, and no ``_encode_step`` on a card tensor; the decode pass:
+   one launch of the decode scan and one of kernel #2, and no
+   ``_decode_step`` on a card tensor), and a slice must give
    the same bytes as the CPU path (a warm-up pass on 1,000 series x 32
    points first: the lazy inits and the kernels' first loads);
 4. golden bytes: the Go-encoded streams in ``tests/data`` decode and
@@ -40,9 +49,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 5. times: datapoints/s of each pass with its phase split; each kernel,
    on the very inputs the timed pass handed it, held bit-equal to its
    plain version once more and timed beside its bound, its plain
-   version and the library call (the decode scan in both forms, its
-   plain loop run once on the card; kernel #2 beside a copy of as many
-   bytes); peak device memory;
+   version and the library call (each scan's plain loop run once on the
+   card, the decode scan in both forms; the encode scan beside two
+   bounds, its bytes over the memory rate and its SASS instructions
+   (``cuobjdump -sass``, each once) for every step of every warp over
+   four schedulers an SM at the highest SM clock; kernel #2 beside a copy
+   of as many bytes); peak device memory;
 6. the aggregator's two kernels (``segment_ingest``, ``segment_minmax``),
    in place into non-zero state columns and in their fresh forms,
    against their plain versions run on CPU copies, int64 and float64,
@@ -388,8 +400,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    config #3's width (10^6 series x 20 s: two drained windows), with
    ``x/tracewatch``'s build budget installed; then one more steady pass
    under ``x/hopwatch`` with the launches counted from 0: kernel #1's
-   grids in the encode hop equal ``encode_place.launches`` and no other
-   hop launches a hand kernel, kernel #1 launched again on each call's
+   grids in the encode hop equal ``encode_place.launches``, the encode
+   scan's there equal them, and no other hop launches a hand kernel,
+   kernel #1 launched again on each call's
    inputs equals its plain version, no kernel is built; on the pinned
    corpus that pass runs under torch.profiler, and the trace's HtoD and
    DtoH memcpys equal the ledger's transfers in count and bytes, and
@@ -440,9 +453,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    machine, equal to the committed (empty) baseline; (b) the IRLINT
    artifact (``x/irlint.build_artifact``) on the card from one census
    build, each stage launching exactly the kernels
-   ``costwatch.STAGE_KERNELS`` names, every launch bit-equal to its
-   plain version (the census's inputs kept on the host, the residency
-   pass's on the card), each 64-bit ceiling equal to the card's census,
+   ``costwatch.STAGE_KERNELS`` names, every launch of the census
+   bit-equal to its plain version (its inputs kept on the host) and
+   kernel #1's in the residency pass too (kept on the card), each 64-bit
+   ceiling equal to the card's census,
    the op and 64-bit type census equal to the CPU's on the same machine
    once each launch's own census less its plain version's is taken off,
    but for the card's routes (a ``_to_copy`` per transfer, ``_sqrt``'s
@@ -535,7 +549,10 @@ and ``measure_launches`` (phase 25's (a)-(d): all four in (a)'s census,
 passes' encodes), and ``dtest_launches`` (phase 27 (c): #1 in the
 re-encode, #2 in the decode of the soak's segments; none of #3-#4),
 and ``native_launches`` (phase 28 (b): #1 in the card's encode, #2 in
-its decode; none of #3-#4);
+its decode; none of #3-#4).  The encode scan launches once in every
+encode pass, beside each launch of kernel #1, and the decode scan once
+in every decode pass; the scans are held bit for bit against their
+plain loops in phases 2, 5, 25 and 26;
 ``shared_card`` names the phases whose kernel times were taken while a
 lane ran beside them.
 The last three lines are a JSON line of kernel records, the card's name
@@ -817,6 +834,109 @@ def extract_edge_checks(seed: int, dev) -> int:
         assert torch.equal(a, b), f"extract_fields64_t kernel != plain at S={S}, W={W}"
     log(f"phase2 extract_fields64_t: bit-equal at (S, W) = {EXTRACT_EDGE_SHAPES}")
     return err
+
+
+ENCODE_SCAN_UNITS = (1, 2, 3, 4)  # SECOND, MILLISECOND, MICROSECOND, NANOSECOND
+
+
+def encode_scan_inputs(ts, vb, valid, starts, unit: int, default_unit: int, dev) -> tuple:
+    """The encode scan's inputs as ``_encode_batch_device`` makes them
+    from (S, T) timestamps, value bits and mask and (S,) starts: the
+    scan-major tables and ``_encode_carry0``'s carry on ``dev``, the unit
+    and whether its default dod bucket is 36 bits."""
+    import torch
+
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    carry0 = mt._encode_carry0(ts.shape[0], t(starts), unit, default_unit)
+    return t(ts.T), t(vb.T), t(valid.T), carry0, unit, unit in (1, 2)
+
+
+def encode_scan_err(got, want) -> int:
+    """Largest bit difference between two encode-scan results (lv, lw,
+    carry), every table and carry row of the same type and shape."""
+    err = 0
+    for a, b in zip(got[:2] + tuple(got[2]), want[:2] + tuple(want[2])):
+        assert a.dtype == b.dtype and a.shape == b.shape, (a.dtype, b.dtype, a.shape, b.shape)
+        if a.numel():
+            err = max(err, int((a.cpu().long() ^ b.cpu().long()).abs().max()))
+    return err
+
+
+def encode_scan_edge_checks(seed: int, dev) -> int:
+    """Phase 2's encode-scan check: the kernel on the card against its
+    plain loop on host copies of the same inputs, the lane tables and the
+    final carry bit for bit, on an edge corpus: the CPU tests' mixed
+    batch (``tests/test_torch_encode_scan.py``: twelve value families,
+    every dod bucket, the overflow and precision fallbacks, unaligned
+    starts, short and empty series) at 67 x 120, 130 x 1 and 3 x 9, and
+    their random 64-bit patterns, in each of the four sub-minute units;
+    the Go golden streams' points re-encoded as phase 4 does (MILLISECOND
+    points, SECOND default); the pinned batch.  Returns the largest bit
+    difference."""
+    from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.parallel import encode_scan
+    from tests.test_torch_encode_scan import _batch, _random_batch
+
+    cases = []
+    for unit in ENCODE_SCAN_UNITS:
+        for shape in ((67, 120), (130, 1), (3, 9)):
+            cases.append((f"{shape[0]} x {shape[1]}, unit {unit}", _batch(*shape), unit, unit))
+        cases.append((f"random patterns, unit {unit}", _random_batch(seed), unit, unit))
+    with open(ROOT / "tests" / "data" / "m3tsz_sample_series.json") as fh:
+        gold = [base64.b64decode(x) for x in json.load(fh)]
+    gts, gvals, gcounts, _ = mt.decode_batch(gold, 1500, device=dev)
+    Tg = int(gcounts.max())
+    gstarts = mt.pack_streams(gold)[0][:, 0].view(np.int64)
+    cases.append(("the Go golden streams", (
+        gts[:, :Tg], np.ascontiguousarray(gvals[:, :Tg]).view(np.int64),
+        np.arange(Tg)[None, :] < gcounts[:, None], gstarts), 2, 1))
+    pts, pvals, pstarts = pinned_batch()
+    cases.append(("the pinned batch", (pts, pvals.view(np.int64), np.ones(pts.shape, bool),
+                                       pstarts), 1, 1))
+    err = 0
+    for what, (ts, vb, valid, starts), unit, default_unit in cases:
+        args = encode_scan_inputs(ts, vb, valid, starts, unit, default_unit, dev)
+        got = encode_scan.encode_scan(*args)
+        want = encode_scan.encode_scan_plain(*tmap(lambda x: x.cpu(), args))
+        e = encode_scan_err(got, want)
+        assert e == 0, f"encode_scan kernel != plain ({what})"
+        err = max(err, e)
+    log(f"phase2 encode_scan: bit-equal on the edge corpus ({len(cases)} batches: "
+        f"{', '.join(c[0] for c in cases)})")
+    return err
+
+
+def sass_instructions(name: str, function: str) -> int:
+    """Instructions (NOPs left out) of the ``__global__`` function whose
+    mangled name holds ``function`` in the named kernel's built library,
+    from ``cuobjdump -sass``: the static count, each instruction once."""
+    import os
+    import re
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from m3_tpu_torch.parallel import _cuda
+
+    tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(_cuda._paths(name)[1])], check=True,
+                         capture_output=True, text=True).stdout
+    count, inside = 0, False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = function in line
+        elif inside and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?!NOP\b)\S", line):
+            count += 1
+    assert count, f"no SASS of {function} in {name}'s library"
+    return count
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock (``nvidia-smi``'s ``clocks.max.sm``)."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0])
 
 
 def decode_corpus_digest(dev) -> str:
@@ -1790,22 +1910,23 @@ def oracle_hq(ubs, rates, q):
 
 def zero_launches() -> None:
     """Every kernel wrapper's launch count to 0."""
-    from m3_tpu_torch.parallel import decode_gather, decode_scan, encode_place
+    from m3_tpu_torch.parallel import decode_gather, decode_scan, encode_place, encode_scan
     from m3_tpu_torch.parallel import segment_ingest as si
 
     encode_place.launches = decode_gather.launches = decode_scan.launches = 0
+    encode_scan.launches = 0
     for k in si.KERNELS:
         si.launches[k] = 0
 
 
 def read_launches() -> dict:
     """Every kernel wrapper's launch count, by kernel name."""
-    from m3_tpu_torch.parallel import decode_gather, decode_scan, encode_place
+    from m3_tpu_torch.parallel import decode_gather, decode_scan, encode_place, encode_scan
     from m3_tpu_torch.parallel import segment_ingest as si
 
     return {**si.launches, "place_words": encode_place.launches,
             "extract_fields64_t": decode_gather.launches,
-            "decode_scan": decode_scan.launches}
+            "decode_scan": decode_scan.launches, "encode_scan": encode_scan.launches}
 
 
 class HostClock:
@@ -5279,7 +5400,8 @@ def mesh_codec(seed: int, S: int, T: int, dev, card: str) -> tuple:
     enc_launches = read_launches()
     for k in ("words", "total_bits", "fallback"):
         assert torch.equal(enc[k], one[k]), f"sharded encode {k}"
-    assert c1.calls == MESH_CODEC_SHARDS and enc_launches["place_words"] == c1.calls
+    assert c1.calls == MESH_CODEC_SHARDS \
+        and enc_launches["place_words"] == enc_launches["encode_scan"] == c1.calls
     log(f"phase20 (c) encode {S:,} x {T} over {MESH_CODEC_SHARDS} shards: words, total_bits "
         f"and fallback == the one-device encode; kernel #1 bit-equal to plain on each of "
         f"{c1.calls} launches; {t['encode_sharded_s']:.2f} s against {t['encode_one_s']:.2f} s "
@@ -5850,8 +5972,10 @@ def cluster_parts(seed: int, dev, card: str, repairs: dict) -> tuple:
                 assert stats["tick"]["default"]["warm_flushed"] == S, stats
         end("c_flush")
         launched = read_launches()
-        assert launched["place_words"] == 2 * CLUSTER_SHARDS == check.calls, launched
-        assert not any(v for k, v in launched.items() if k != "place_words"), launched
+        assert launched["place_words"] == launched["encode_scan"] == 2 * CLUSTER_SHARDS \
+            == check.calls, launched
+        assert not any(v for k, v in launched.items() if k not in ("place_words",
+                                                                    "encode_scan")), launched
         frags, keys, w_out = check.args
         place = {"cluster_ms": cuda_ms(lambda: check.fn(frags, keys, w_out)),
                  "cluster_plain_ms": cuda_ms(
@@ -7058,7 +7182,8 @@ PROTO_FDS = base64.b64decode(
 HAND_KERNELS = {"place_words_kernel": "place_words", "extract_fields_kernel": "extract_fields",
                 "count_kernel": "segment_ingest", "apply_unique": "segment_ingest",
                 "scan_tiles": "segment_ingest", "compact_collided": "segment_ingest",
-                "apply_collided": "segment_ingest", "segment_minmax_kernel": "segment_minmax"}
+                "apply_collided": "segment_ingest", "segment_minmax_kernel": "segment_minmax",
+                "encode_scan_kernel": "encode_scan"}
 
 
 def trace_of(fn) -> tuple:
@@ -7259,8 +7384,9 @@ def hops_ledger(S: int, T: int, dev, card: str, tag: str, profile: bool) -> dict
     the pinned corpus's equal to the JAX digest; no build) with the
     launches counted from 0: kernel #1's grids in the encode hops of the
     two ledgers equal the launches its calls made while ``x/hopwatch``
-    was installed, all its calls together ``encode_place.launches``, no
-    other hop launches a hand kernel, and kernel #1 launched again on
+    was installed, and the encode scan's grids there equal them, all its
+    calls together ``encode_place.launches`` (and as many of the scan),
+    no other hop and no other kernel launches, and kernel #1 launched again on
     each call's inputs equals its plain version.  Where ``profile``, one
     more steady pass under ``x/hopwatch`` runs under torch.profiler,
     launches counted from 0 again: the same checks, and the ledger equals
@@ -7273,11 +7399,13 @@ def hops_ledger(S: int, T: int, dev, card: str, tag: str, profile: bool) -> dict
     def held(rec, ledgers: list, launched: dict) -> int:
         grids = [kernel_grids(sm) for sm in ledgers]
         enc = sum(g.get("encode", {}).get("place_words", 0) for g in grids)
-        assert enc == rec.launches(True) > 0, (enc, rec.calls)
+        scan = sum(g.get("encode", {}).get("encode_scan", 0) for g in grids)
+        assert enc == scan == rec.launches(True) > 0, (enc, scan, rec.calls)
         assert rec.launches(True) + rec.launches(False) == launched["place_words"] \
-            == sum(launched.values()), launched
+            == launched["encode_scan"], launched
+        assert sum(launched.values()) == 2 * launched["place_words"], launched
         others = [(h, k) for g in grids for h, ks in g.items() for k in ks
-                  if (h, k) != ("encode", "place_words")]
+                  if (h, k) not in (("encode", "place_words"), ("encode", "encode_scan"))]
         assert not others, others
         return enc
 
@@ -7726,8 +7854,8 @@ def instruments_phase(seed: int, dev, card: str) -> dict:
 
 def instrument_records(kernels: list, got: dict, card: str) -> None:
     """Phase 24's result into the kernel records: ``instrument_launches``
-    (its path's: kernel #1 in (a)'s encode hops and (d)'s encode, above 0;
-    #2, #3 and #4 none — the packed layout) and its largest difference
+    (its path's: kernel #1 and the encode scan in (a)'s encode hops and
+    (d)'s encode, above 0; #2, #3 and #4 none — the packed layout) and its largest difference
     from the plain versions ((b)'s guarded launches of #1 and #2
     included)."""
     for k in kernels:
@@ -7753,10 +7881,22 @@ AGG_ROLLUP_SAMPLES = 6_000_000  # one 1 m window of six 10 s scrapes
 AGG_TIMER_SAMPLES = 10_000_000  # config #4's 10M samples over 1M timer ids
 
 
+def tmap(fn, x):
+    """``fn`` on every tensor of ``x`` (a tensor, or tuples and lists of
+    them, nested), the rest as it is."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, (tuple, list)):
+        return type(x)(tmap(fn, y) for y in x)
+    return x
+
+
 class HostKept:
     """Within ``with``, every call of ``owner.attr`` (a kernel wrapper as
     its caller looks it up) runs as before, and host copies of its inputs
-    are kept — made under ``costwatch.uncounted()``, so a census counts
+    (tensors nested in tuples too) are kept — made under ``costwatch.uncounted()``, so a census counts
     none of the copying, and held off the card, so no device memory is
     held across the pass.  ``check`` then launches the kernel again on
     device copies of each kept call's inputs and holds its result against
@@ -7787,8 +7927,8 @@ class HostKept:
         def kept(*a, **kw):
             counted = costwatch.counting()
             with costwatch.uncounted():
-                self.calls.append([tuple(x.to("cpu", copy=True) if isinstance(x, torch.Tensor)
-                                         else x for x in a), kw, counted, None])
+                self.calls.append([tmap(lambda x: x.to("cpu", copy=True), a), kw, counted,
+                                   None])
             return fn(*a, **kw)
 
         setattr(self.owner, self.attr, kept)
@@ -7822,8 +7962,7 @@ class HostKept:
 
         from m3_tpu_torch.x import costwatch
 
-        dup = lambda a, to=None: [(x.to(to) if to else x.clone())
-                                  if isinstance(x, torch.Tensor) else x for x in a]
+        dup = lambda a, to=None: list(tmap(lambda x: x.to(to) if to else x.clone(), a))
         flat = lambda x: [x] if isinstance(x, torch.Tensor) else [t for y in x for t in flat(y)]
         err, n = 0.0, len(self.calls)
         for a, kw, counted, stage in self.calls:
@@ -7904,7 +8043,7 @@ def census_on_card(dev, card: str) -> dict:
     import contextlib
 
     from m3_tpu_torch.encoding import m3tsz_torch as mt
-    from m3_tpu_torch.parallel import decode_gather, decode_scan, encode_place
+    from m3_tpu_torch.parallel import decode_gather, decode_scan, encode_place, encode_scan
     from m3_tpu_torch.parallel import segment_ingest as si
     from m3_tpu_torch.tools import costs
     from m3_tpu_torch.x import costwatch
@@ -7916,7 +8055,8 @@ def census_on_card(dev, card: str) -> dict:
                                        si.segment_ingest_into_plain, cols=3),
             "segment_minmax": HostKept(si, "segment_minmax_into",
                                        si.segment_minmax_into_plain, cols=2),
-            "decode_scan": HostKept(mt, "decode_scan", decode_scan.decode_scan_plain)}
+            "decode_scan": HostKept(mt, "decode_scan", decode_scan.decode_scan_plain),
+            "encode_scan": HostKept(mt, "encode_scan", encode_scan.encode_scan_plain)}
     zero_launches()
     arts, walls = [], []
     with contextlib.ExitStack() as stack:
@@ -8190,7 +8330,7 @@ def irlint_on_card(dev, card: str) -> dict:
     import contextlib
 
     from m3_tpu_torch.encoding import m3tsz_torch as mt
-    from m3_tpu_torch.parallel import decode_gather, decode_scan, encode_place
+    from m3_tpu_torch.parallel import decode_gather, decode_scan, encode_place, encode_scan
     from m3_tpu_torch.parallel import segment_ingest as si
     from m3_tpu_torch.tools import costs
     from m3_tpu_torch.x import costwatch, irlint
@@ -8202,7 +8342,8 @@ def irlint_on_card(dev, card: str) -> dict:
                                        si.segment_ingest_into_plain, cols=3),
             "segment_minmax": HostKept(si, "segment_minmax_into",
                                        si.segment_minmax_into_plain, cols=2),
-            "decode_scan": HostKept(mt, "decode_scan", decode_scan.decode_scan_plain)}
+            "decode_scan": HostKept(mt, "decode_scan", decode_scan.decode_scan_plain),
+            "encode_scan": HostKept(mt, "encode_scan", encode_scan.encode_scan_plain)}
 
     def on_stage(name, _seconds):
         for r in recs.values():
@@ -8843,10 +8984,16 @@ def gates_cli_on_card(card: str) -> dict:
     assert rc == 0 and lines[0]["ok"] and lines[0]["findings"] == 0, lines
     lint_doc = lines[0]
     t_lint = time.perf_counter() - t0
-    with KernelCheck(mt, "place_words", encode_place.place_words_plain) as place:
+    # kernel #1's calls are held against plain after the gated run, so
+    # that the comparison's own dispatches and reads stay out of the
+    # encode hop's ledger
+    with InputRecord(mt, "place_words", encode_place.place_words_plain) as rec:
         rc, lines, _ = cli_run(["hops", "--check"])
     chk = lines[0]["hops_check"]
     assert rc == 0 and chk["ok"] and chk["baseline"].endswith("hops_baseline_cuda.json"), chk
+    place_calls = len(rec.calls)
+    assert place_calls > 0, "cli hops --check launched no place_words"
+    place_err = rec.check()
     pipe = chk["pipeline"]
     log(f"phase27 (d) [{card}] cli lint --json: ok, {lint_doc['findings']} findings, baseline "
         f"{lint_doc['baseline']} ({t_lint:.1f} s); "
@@ -8854,9 +9001,9 @@ def gates_cli_on_card(card: str) -> dict:
         f"{pipe['transfers_steady']} transfers, {pipe['transfer_bytes_steady']} B, "
         f"{pipe['dispatches_steady']} dispatches, {pipe['compiles_steady']} builds; "
         f"{pipe['samples_per_s_wire_to_bytes']:.0f} samples/s uncounted); kernel #1 "
-        f"{place.calls} launches, each bit-equal to plain; {time.perf_counter() - t0:.1f} s")
-    return {"lint_s": t_lint, "s": time.perf_counter() - t0, "hops_place_launches": place.calls,
-            "place_err": place.err}
+        f"{place_calls} launches, each bit-equal to plain; {time.perf_counter() - t0:.1f} s")
+    return {"lint_s": t_lint, "s": time.perf_counter() - t0, "hops_place_launches": place_calls,
+            "place_err": place_err}
 
 
 def dtest_phase(seed: int, dev, card: str, after_agent=None) -> dict:
@@ -9121,7 +9268,7 @@ def native_records(kernels: list, got: dict, card: str) -> None:
 # ---- lanes: phases in processes of their own, beside the main one ----
 
 KERNEL_NAMES = ("place_words", "extract_fields64_t", "segment_ingest", "segment_minmax",
-                "decode_scan")
+                "decode_scan", "encode_scan")
 LANE_THREADS = 2  # torch's CPU threads in a lane: four processes share the host
 _LANE: dict = {}
 
@@ -9293,7 +9440,7 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
 
     from m3_tpu_torch.core.xtime import Unit
     from m3_tpu_torch.encoding import m3tsz_torch as mt
-    from m3_tpu_torch.parallel import _cuda, decode_gather, decode_scan, encode_place
+    from m3_tpu_torch.parallel import _cuda, decode_gather, decode_scan, encode_place, encode_scan
     from m3_tpu_torch.parallel import segment_ingest as si
 
     dev = torch.device("cuda")
@@ -9305,7 +9452,8 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    names = [encode_place.KERNEL, decode_gather.KERNEL, decode_scan.KERNEL, *si.KERNELS]
+    names = [encode_place.KERNEL, encode_scan.KERNEL, decode_gather.KERNEL, decode_scan.KERNEL,
+             *si.KERNELS]
     _cuda.build(names)
     log(f"phase1 build: {time.perf_counter() - t0:.1f} s ({len(names)} nvcc in parallel)")
     for name in names:
@@ -9347,6 +9495,7 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
     torch.cuda.empty_cache()
     ext_err = max(ext_err, extract_edge_checks(args.seed, dev))
     scan_err_max = scan_edge_checks(args.seed, dev)
+    enc_scan_err = encode_scan_edge_checks(args.seed, dev)
     torch.cuda.empty_cache()
 
     # ---- phase 3: the main path ----
@@ -9375,16 +9524,25 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
         return orig[2](*a, **kw)
 
     card_steps = []  # _decode_step calls on a card tensor: none may run
+    card_enc_steps = []  # nor _encode_step calls
 
     def watch_step(carry, words, *a):
         if words.is_cuda:
             card_steps.append(words.shape)
         return orig[3](carry, words, *a)
 
-    orig = (mt.place_words, mt.extract_fields64_t, mt.decode_scan, mt._decode_step)
+    def watch_enc_step(carry, t, *a, **kw):
+        if t.is_cuda:
+            card_enc_steps.append(t.shape)
+        return orig[5](carry, t, *a, **kw)
+
+    orig = (mt.place_words, mt.extract_fields64_t, mt.decode_scan, mt._decode_step,
+            mt.encode_scan, mt._encode_step)
     mt.place_words = keep_args("place_words", orig[0])
     mt.extract_fields64_t = keep_args("extract_fields64_t", orig[1])
     mt.decode_scan, mt._decode_step = keep_scan, watch_step
+    mt.encode_scan = keep_args("encode_scan", orig[4])
+    mt._encode_step = watch_enc_step
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     enc_t: dict = {}
@@ -9401,14 +9559,19 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
     torch.cuda.synchronize()
     dec_s = time.perf_counter() - t0
     launches = {k: v for k, v in read_launches().items()
-                if k in ("place_words", "extract_fields64_t", "decode_scan")}
+                if k in ("place_words", "extract_fields64_t", "decode_scan", "encode_scan")}
     peak = torch.cuda.max_memory_allocated()
-    mt.place_words, mt.extract_fields64_t, mt.decode_scan, mt._decode_step = orig
+    (mt.place_words, mt.extract_fields64_t, mt.decode_scan, mt._decode_step, mt.encode_scan,
+     mt._encode_step) = orig
     log(f"phase3 launches on the main path: {launches}")
     assert all(v > 0 for v in launches.values()), launches
+    enc_only = {k: v for k, v in enc_launches.items() if v}
+    assert enc_only == {"place_words": 1, "encode_scan": 1}, enc_only
+    assert not card_enc_steps, f"_encode_step ran on card tensors {len(card_enc_steps)} times"
+    log(f"phase3 the encode pass: {enc_only}, no _encode_step on a card tensor")
     dec_launches = {k: launches[k] - enc_launches[k] for k in launches}
-    assert dec_launches == {"place_words": 0, "extract_fields64_t": 1, "decode_scan": 1}, \
-        dec_launches
+    assert dec_launches == {"place_words": 0, "extract_fields64_t": 1, "decode_scan": 1,
+                            "encode_scan": 0}, dec_launches
     assert not card_steps, f"_decode_step ran on card tensors {len(card_steps)} times"
     log(f"phase3 the decode pass: {dec_launches}, no _decode_step on a card tensor")
 
@@ -9502,7 +9665,32 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
                                                                  fused=f)),
             "plain_ms": ea.elapsed_time(eb),
             "bound_ms": scan_bytes(wpad, nb, P, fused) / HBM_BYTES_PER_S * 1e3}
-    log("phase5 the three codec kernels bit-equal to their plain versions on the "
+    es_args = seen["encode_scan"]
+    got = encode_scan.encode_scan(*es_args)
+    torch.cuda.synchronize()
+    ea, eb = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ea.record()
+    want = encode_scan.encode_scan_plain(*es_args)  # the loop of _encode_step, on the card
+    eb.record()
+    torch.cuda.synchronize()
+    e = encode_scan_err(got, want)
+    assert e == 0, "encode_scan kernel != plain on main-path inputs"
+    enc_scan_err = max(enc_scan_err, e)
+    del got, want
+    Te, Se = es_args[0].shape
+    # 17 B read (ts, value bits, flag) and 48 B written (four lane values,
+    # four widths) a datapoint, the carry read and written once
+    es_bytes = Te * Se * (8 + 8 + 1) + Te * 4 * Se * (8 + 4) + 2 * encode_scan.CARRY_ROWS * Se * 8
+    es_sass = sass_instructions(encode_scan.KERNEL, "encode_scan_kernel")
+    sm_mhz = sm_clock_mhz()
+    # one warp instruction a scheduler a clock, four schedulers an SM: the
+    # kernel's instructions once for every step of every warp of 32 series
+    es_issue_ms = es_sass * -(-Se // 32) * Te / (132 * 4 * sm_mhz * 1e6) * 1e3
+    es_t = {"ms": cuda_ms(lambda: encode_scan.encode_scan(*es_args)),
+            "plain_ms": ea.elapsed_time(eb),
+            "bytes_bound_ms": es_bytes / HBM_BYTES_PER_S * 1e3, "issue_bound_ms": es_issue_ms,
+            "sass_instructions": es_sass, "sm_clock_mhz": sm_mhz}
+    log("phase5 the four codec kernels bit-equal to their plain versions on the "
         "main path's own inputs (the decode scan in both forms)")
     dp = S * T
     log(f"phase5 [{card}] encode {dp / enc_s:,.0f} dp/s ({enc_s:.2f} s: "
@@ -9536,12 +9724,23 @@ def run(args, lanes: list, card: str, t_start: float) -> int:
          "bound_ms": scan_t[False]["bound_ms"], "bound_by": "bytes", "library_ms": None,
          "fused_ms": scan_t[True]["ms"], "fused_plain_ms": scan_t[True]["plain_ms"],
          "fused_bound_ms": scan_t[True]["bound_ms"]},
+        # replaces no Pallas kernel: the reference's lax.scan over _encode_step
+        {"name": "encode_scan", "route": "cuda",
+         "source": "m3_tpu_torch/csrc/encode_scan.cu",
+         "replaces": "m3_tpu/encoding/m3tsz_jax.py:365",
+         "launches": launches["encode_scan"], "max_abs_err": enc_scan_err,
+         "ms": es_t["ms"], "plain_ms": es_t["plain_ms"],
+         "bound_ms": max(es_t["bytes_bound_ms"], es_t["issue_bound_ms"]),
+         "bound_by": ("operations" if es_t["issue_bound_ms"] > es_t["bytes_bound_ms"]
+                      else "bytes"),
+         "library_ms": None, **{k: es_t[k] for k in (
+             "bytes_bound_ms", "issue_bound_ms", "sass_instructions", "sm_clock_mhz")}},
     ]
     for k in kernels:
         log(f"phase5 [{card}] {k['name']}: {k['ms']:.3f} ms, bound "
             f"{k['bound_ms']:.3f} ms ({k['bound_by']}), plain {k['plain_ms']:.3f} ms, "
             f"library {k['library_ms']}, launches/pass {k['launches']}")
-    del seen, a, b, words_t, offs, widths, streams, dts, dvals, wpad, nb, unit0
+    del seen, a, b, words_t, offs, widths, streams, dts, dvals, wpad, nb, unit0, es_args
     torch.cuda.empty_cache()
 
     # ---- phases 6-9: the aggregator ----

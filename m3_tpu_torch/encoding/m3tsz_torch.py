@@ -5,7 +5,8 @@ Same two-phase formulation as the JAX reference, with the same names:
 
 * **Encode.**  Phase 1 (``_encode_step``) resolves each datapoint's
   format into four (value, width) lanes; the reference's ``lax.scan``
-  becomes a Python loop over T whose lanes are (S,) tensors.  Phase 2
+  over it is ``m3_tpu_torch.parallel.encode_scan`` (one CUDA kernel
+  launch on the card, the Python loop of steps on the CPU).  Phase 2
   turns the widths into bit offsets with one exclusive prefix sum, cuts
   each lane into two word fragments (``_lane_frags``) and places them
   (``m3_tpu_torch.parallel.encode_place.place_words``: a CUDA kernel on
@@ -58,6 +59,7 @@ from m3_tpu_torch.encoding.scheme import (
 from m3_tpu_torch.parallel.decode_gather import extract_fields64_t
 from m3_tpu_torch.parallel.decode_scan import decode_scan
 from m3_tpu_torch.parallel.encode_place import place_words
+from m3_tpu_torch.parallel.encode_scan import encode_scan
 from m3_tpu_torch.x import devguard, membudget
 
 I64 = torch.int64
@@ -489,18 +491,13 @@ def _encode_batch_device(timestamps, value_bits, start, valid, unit: int = 1,
     u = Unit(unit)
     default_32 = u in (Unit.SECOND, Unit.MILLISECOND)
 
-    # ---- phase 1: one step per datapoint, (S,) lanes, stream-order
-    # (T, 4, S) tables whose (4T, S) reshape is free ----
+    # ---- phase 1: the per-series scan (one kernel launch on the card,
+    # the loop of _encode_step on the CPU) into stream-order (T, 4, S)
+    # tables whose (4T, S) reshape is free ----
     ts_t, vb_t, valid_t = (x.t().contiguous() for x in (ts, vb, valid))
-    lv = torch.empty((T, 4, S), dtype=I64, device=dev)
-    lw = torch.empty((T, 4, S), dtype=I32, device=dev)
     carry = _encode_carry0(S, start, unit,
                            unit if default_unit is None else int(default_unit))
-    for i in range(T):
-        carry, lanes = _encode_step(carry, ts_t[i], vb_t[i], valid_t[i],
-                                    unit=unit, default_unit_is_32bit=default_32)
-        lv[i] = torch.stack(lanes[:4])
-        lw[i] = torch.stack(lanes[4:])
+    lv, lw, carry = encode_scan(ts_t, vb_t, valid_t, carry, unit, default_32)
     t0 = _mark(timings, "phase1", dev, t0)
 
     # ---- phase 2: one exclusive prefix sum over the per-datapoint bit

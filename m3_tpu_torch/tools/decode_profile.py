@@ -29,14 +29,19 @@ is that launch alone on the same streams, and ``full`` the production
 decode (the scan, then the gather tail with kernel #2); the attribution
 keys are ``scan_kernel`` and ``gather_tail_and_rest``.
 
-``--mode encode``: ``carry`` (the loop with live lane outputs),
+``--mode encode`` on the CPU, where the encode's scan is the loop of
+``_encode_step``: ``carry`` (the loop with live lane outputs),
 ``classify`` (+ the decimal search, ``classify_value``), ``phase1`` (the
 production lane-emission loop), ``prefix_frags`` (+ the exclusive prefix
-sums and the fragments) and ``full`` (the production encode, whose
-placement is kernel #1 on the card); the attribution keys are
-``scan_carry_roundtrip``, ``classify_decimal_search``,
-``lane_emission_rest_of_step``, ``prefix_sum_and_fragments`` and
-``word_placement``.
+sums and the fragments) and ``full`` (the production encode); the
+attribution keys are ``scan_carry_roundtrip``,
+``classify_decimal_search``, ``lane_emission_rest_of_step``,
+``prefix_sum_and_fragments`` and ``word_placement``.  On a card the scan
+is one launch of the encode scan kernel (``parallel/encode_scan``), so,
+as in the decode mode, ``scan`` is that launch alone on the same corpus
+and ``full`` the production encode (the scan, then the prefix sums and
+kernel #1's placement); the attribution keys are ``scan_kernel`` and
+``placement_and_rest``.
 
 Each layer is timed on the device, ending in a synchronize (best of
 ``reps``), and reports its dispatches per step from ``x/costwatch``'s
@@ -73,7 +78,7 @@ import torch
 from m3_tpu_torch import native, resolve_device
 from m3_tpu_torch._bits import shl, shr
 from m3_tpu_torch.encoding import m3tsz_torch as mt
-from m3_tpu_torch.parallel import decode_scan
+from m3_tpu_torch.parallel import decode_scan, encode_scan
 from m3_tpu_torch.x import costwatch
 
 I32 = mt.I32
@@ -375,11 +380,23 @@ def profile_encode(S: int, T: int, device=None, corpus=None, reps: int = REPS,
 
     layers: dict = {}
     ops: dict = {}
-    for mode in ("carry", "classify", "phase1", "prefix_frags"):
-        proxy_encode(*(x[:, :2] if x.dim() == 2 else x for x in args), mode)  # lazy inits
-        layers[mode] = _time(lambda m=mode: proxy_encode(*args, m), dev, reps)
-        ops[mode] = _per_step(lambda k, m=mode: proxy_encode(
-            *(x[:, :k] if x.dim() == 2 else x for x in args), m))
+    ts, vb, start, valid = args
+    if dev.type == "cuda":  # phase 1 is one launch of the scan kernel
+        cols = [x.t().contiguous() for x in (ts, vb, valid)]
+        carry0 = mt._encode_carry0(S, start, 1, 1)
+
+        def scan(steps=T):
+            return encode_scan.encode_scan(*(x[:steps] for x in cols), carry0, 1, True)
+
+        scan(2)  # the kernel's build and load
+        layers["scan"] = _time(scan, dev, reps)
+        ops["scan"] = _per_step(scan)
+    else:
+        for mode in ("carry", "classify", "phase1", "prefix_frags"):
+            proxy_encode(*(x[:, :2] if x.dim() == 2 else x for x in args), mode)  # lazy inits
+            layers[mode] = _time(lambda m=mode: proxy_encode(*args, m), dev, reps)
+            ops[mode] = _per_step(lambda k, m=mode: proxy_encode(
+                *(x[:, :k] if x.dim() == 2 else x for x in args), m))
     res = full()
     if bool(res["fallback"].any()):
         raise RuntimeError("the profile corpus has fallback series")
@@ -393,46 +410,44 @@ def profile_encode(S: int, T: int, device=None, corpus=None, reps: int = REPS,
                           torch.from_numpy(nbits).to(dev))
     del res
 
-    t_carry = layers["carry"]
-    t_classify = layers["classify"] - layers["carry"]
-    t_emit = layers["phase1"] - layers["classify"]
-    t_prefix = layers["prefix_frags"] - layers["phase1"]
-    t_place = layers["full"] - layers["prefix_frags"]
+    if dev.type == "cuda":
+        parts = (("scan_kernel", layers["scan"]),
+                 ("placement_and_rest", layers["full"] - layers["scan"]))
+        ceilings = {"ceiling_if_scan_only": round(S * T / max(layers["scan"], 1e-9))}
+    else:
+        t_classify = layers["classify"] - layers["carry"]
+        parts = (("scan_carry_roundtrip", layers["carry"]),
+                 ("classify_decimal_search", t_classify),
+                 ("lane_emission_rest_of_step", layers["phase1"] - layers["classify"]),
+                 ("prefix_sum_and_fragments", layers["prefix_frags"] - layers["phase1"]),
+                 ("word_placement", layers["full"] - layers["prefix_frags"]))
+        ceilings = {
+            "ceiling_if_placement_free": round(S * T / layers["prefix_frags"]),
+            "ceiling_if_scan_only": round(S * T / layers["phase1"]),
+            "ceiling_if_classify_free": round(S * T / max(layers["phase1"] - t_classify,
+                                                          1e-9)),
+        }
     out["seconds"] = {k: round(v, 4) for k, v in layers.items()}
-    out["attribution_s"] = {
-        "scan_carry_roundtrip": round(t_carry, 4),
-        "classify_decimal_search": round(t_classify, 4),
-        "lane_emission_rest_of_step": round(t_emit, 4),
-        "prefix_sum_and_fragments": round(t_prefix, 4),
-        "word_placement": round(t_place, 4),
-    }
-    out["attribution_pct"] = {
-        k: round(100 * v / layers["full"], 1)
-        for k, v in (("scan_carry_roundtrip", t_carry),
-                     ("classify_decimal_search", t_classify),
-                     ("lane_emission_rest_of_step", t_emit),
-                     ("prefix_sum_and_fragments", t_prefix),
-                     ("word_placement", t_place))}
+    out["attribution_s"] = {k: round(v, 4) for k, v in parts}
+    out["attribution_pct"] = {k: round(100 * v / layers["full"], 1) for k, v in parts}
     out["dispatches_per_step"] = {k: v["per_step"] for k, v in ops.items()}
     out["dispatches_fixed"] = {k: v["fixed"] for k, v in ops.items()}
-    out["dps"] = {
-        "full": round(S * T / layers["full"]),
-        "ceiling_if_placement_free": round(S * T / layers["prefix_frags"]),
-        "ceiling_if_scan_only": round(S * T / layers["phase1"]),
-        "ceiling_if_classify_free": round(S * T / max(layers["phase1"] - t_classify, 1e-9)),
-    }
+    out["dps"] = {"full": round(S * T / layers["full"]), **ceilings}
     # the native C++ yardstick on the same corpus
     if native.available():
         (_, fallback), t = _host_timed(lambda: native.encode_batch(*corpus))
         if not fallback.any():
             out["native_cpp_dps"] = round(S * T / t)
-    ts, vb, start, valid = args
-    carry0 = mt._encode_carry0(S, start, 1, 1)
-    step_ops = _count_ops(mt._encode_step, carry0, ts[:, 0], vb[:, 0], valid[:, 0], unit=1,
-                          default_unit_is_32bit=True)
+    # the step's structural op count (on a card, one step of the scan kernel)
+    if dev.type == "cuda":
+        step_ops = costwatch.encode_step_ops(ts, vb, start, valid)
+    else:
+        carry0 = mt._encode_carry0(S, start, 1, 1)
+        step_ops = _count_ops(mt._encode_step, carry0, ts[:, 0], vb[:, 0], valid[:, 0], unit=1,
+                              default_unit_is_32bit=True)
+        out["classify_ops"] = _count_ops(mt.classify_value, vb[:, 0], torch.zeros_like(start))
     out["step_ops"] = step_ops
     out["element_ops_per_datapoint_phase1"] = step_ops
-    out["classify_ops"] = _count_ops(mt.classify_value, vb[:, 0], torch.zeros_like(start))
     return out
 
 

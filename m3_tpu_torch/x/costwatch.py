@@ -57,6 +57,7 @@ __all__ = [
     "GATED_METRICS", "EXACT_METRICS", "STAGES", "STAGE_MAP", "STAGE_KERNELS", "Census",
     "Stage", "CountedStage", "bench_corpus", "census", "clear_stage_cache",
     "count_step_ops", "counted_stage", "counted_stages", "counting", "decode_step_ops",
+    "encode_step_ops",
     "fingerprint_call", "platform_config", "quiet_heap", "run_stages", "stage_names",
     "step_ops_crosscheck", "uncounted",
 ]
@@ -84,15 +85,15 @@ SEED = 42  # the registry's data
 # census (:func:`step_ops_crosscheck` holds the live counts to them): the
 # decoder's gather-tail step and the encoder's lane-emission step.  The
 # port's own counts, not the reference's jaxpr equation counts.  On the
-# CPU each decode step is ``_decode_step``'s tensor ops; on a card every
-# step of the decode's scan runs inside one launch of the scan kernel, so
-# one step there is that launch at ``max_points=1`` with its wrapper's
-# ops (:func:`decode_step_ops`).
+# CPU each step is ``_decode_step``'s or ``_encode_step``'s tensor ops;
+# on a card every step of each scan runs inside one launch of its scan
+# kernel, so one step there is that launch at one step with its
+# wrapper's ops (:func:`decode_step_ops`, :func:`encode_step_ops`).
 DOCUMENTED_OPS_PER_DP = {
     "decode_step": 444,
     "encode_step": 1326,
 }
-DOCUMENTED_CARD_OPS_PER_DP = {**DOCUMENTED_OPS_PER_DP, "decode_step": 12}
+DOCUMENTED_CARD_OPS_PER_DP = {"decode_step": 12, "encode_step": 13}
 
 # Per-stage metrics the ratchet gates, in either direction.  The census
 # is exact, so counts gate exactly (EXACT_METRICS: one dispatch more is a
@@ -681,8 +682,8 @@ STAGE_KERNELS = {
     "decode/fused": ("decode_scan",),
     "decode/gather": ("decode_scan", "extract_fields"),
     "decode/sharded": ("decode_scan", "extract_fields"),
-    "encode": ("place_words",),
-    "encode/sharded": ("place_words",),
+    "encode": ("encode_scan", "place_words"),
+    "encode/sharded": ("encode_scan", "place_words"),
     "arena/counter_ingest_f64": ("segment_ingest", "segment_minmax"),
     "arena/gauge_ingest_f64": ("segment_ingest", "segment_minmax"),
     "timer/ingest_f64": ("segment_ingest",),
@@ -801,14 +802,28 @@ def _decode_step_ops(dev) -> int:
     return decode_step_ops(wpad, nb, unit0, mt.value_ctrl_table(dev))
 
 
-def _encode_step_ops(dev) -> int:
+def encode_step_ops(ts, vb, start, valid) -> int:
+    """Dispatches of one encode step (unit SECOND) as the tensors' device
+    runs it (the encoder's (S, T) timestamps, value bits and mask and its
+    (S,) starts): ``_encode_step``'s ops on the CPU; on a card, one step
+    of the scan kernel (``encode_scan`` at T = 1: the launch and its
+    wrapper's ops).  Warmed first."""
     from m3_tpu_torch.encoding import m3tsz_torch as mt
+    from m3_tpu_torch.parallel import encode_scan
 
-    ts, vb, start, valid = _codec_args(dev)
-    carry = mt._encode_carry0(CANONICAL["S"], start, 1, 1)
+    carry = mt._encode_carry0(ts.shape[0], start, 1, 1)
+    if ts.device.type == "cuda":
+        cols = [x[:, :1].t().contiguous() for x in (ts, vb, valid)]
+        step = functools.partial(encode_scan.encode_scan, *cols, carry, 1, True)
+        step()  # warm: the kernel's build and load
+        return count_step_ops(step)
     step = functools.partial(mt._encode_step, unit=1, default_unit_is_32bit=True)
     step(carry, ts[:, 0], vb[:, 0], valid[:, 0])  # warm
     return count_step_ops(step, carry, ts[:, 0], vb[:, 0], valid[:, 0])
+
+
+def _encode_step_ops(dev) -> int:
+    return encode_step_ops(*_codec_args(dev))
 
 
 def step_ops_crosscheck(stage_fps: Dict[str, dict], device=None) -> dict:
@@ -834,7 +849,7 @@ def step_ops_crosscheck(stage_fps: Dict[str, dict], device=None) -> dict:
     out["explanation"] = (
         "census_step_ops counts every aten op of one phase-1 step for all S "
         "series at once (the eager loop runs one step per datapoint; on a card "
-        "the decode's step is one slot of the scan kernel, its launch and its "
+        "each scan's step is one slot of its scan kernel, the launch and its "
         "wrapper's ops); a "
         "stage's dispatches_per_dp divides the whole pass's dispatches by S*T, "
         "so stage_vs_step near 1.0 says phase 1 is the pass, and the rest is "

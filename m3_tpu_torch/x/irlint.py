@@ -169,16 +169,17 @@ WIDTH_CONTRACTS: Dict[str, Dict[str, int]] = {
 # The card's census less the CPU's, by route, not by promotion (phase 26
 # (b) of chip_smoke.py accounts for every op of the difference): a hand
 # kernel's launch replaces its plain version's 64-bit results (the
-# negative rows; the decode stages' scan kernel replaces the whole loop of
-# ``_decode_step``, and with it the fused tail's upload of its unit
-# table); the consume stages' ``arena._sqrt`` is ``torch.sqrt`` on the
-# card where the CPU takes numpy's correctly rounded root (no aten op).
+# negative rows; each codec stage's scan kernel replaces the whole loop of
+# ``_decode_step`` or ``_encode_step``, and the decode's also the fused
+# tail's upload of its unit table); the consume stages' ``arena._sqrt``
+# is ``torch.sqrt`` on the card where the CPU takes numpy's correctly
+# rounded root (no aten op).
 CARD_WIDTH_DELTAS: Dict[str, Dict[str, int]] = {
     "decode/fused": {"int64": -49308},
     "decode/gather": {"int64": -40688},
     "decode/sharded": {"int64": -81376},
-    "encode": {"int64": -4},
-    "encode/sharded": {"int64": -8},
+    "encode": {"int64": -115710},
+    "encode/sharded": {"int64": -231420},
     "arena/counter_ingest_f64": {"int64": -19},
     "arena/gauge_ingest_f64": {"int64": -38, "float64": -13},
     "arena/counter_consume_packed": {"float64": 1},

@@ -70,12 +70,12 @@ _RANDOM_FILLS = frozenset((
 ))
 _SEAM_CALLS = ("devguard.run_guarded", "run_guarded")
 # the hand-kernel wrappers and the entry points that route to them
-# (``parallel/encode_place``, ``decode_gather``, ``decode_scan``,
-# ``segment_ingest``): a call of one is card work (device-guard,
+# (``parallel/encode_place``, ``encode_scan``, ``decode_gather``,
+# ``decode_scan``, ``segment_ingest``): a call of one is card work (device-guard,
 # transfer-hygiene's timed regions); tests hold the table to the defs
 # that report a launch
 KERNEL_WRAPPERS = frozenset((
-    "place_words", "extract_fields64_t", "decode_scan", "segment_ingest_into",
+    "place_words", "encode_scan", "extract_fields64_t", "decode_scan", "segment_ingest_into",
     "segment_minmax_into", "segment_ingest", "segment_minmax",
     "pallas_segment_ingest", "pallas_segment_moments", "pallas_segment_minmax",
     "segment_ingest_chunked", "segment_moments_chunked", "segment_minmax_chunked",

@@ -17,7 +17,7 @@ import torch
 
 from m3_tpu.tools import costs as ref_costs
 from m3_tpu.x import costwatch as ref_cw
-from m3_tpu_torch.parallel import decode_gather, decode_scan, encode_place
+from m3_tpu_torch.parallel import decode_gather, decode_scan, encode_place, encode_scan
 from m3_tpu_torch.parallel import segment_ingest as si
 from m3_tpu_torch.tools import costs
 from m3_tpu_torch.x import costwatch as cw
@@ -45,11 +45,12 @@ def test_stage_map_covers_every_reference_stage():
 
 
 def test_stage_kernel_table_names_registered_stages_and_kernels():
-    kernels = {encode_place.KERNEL, decode_gather.KERNEL, decode_scan.KERNEL, *si.KERNELS}
+    kernels = {encode_place.KERNEL, encode_scan.KERNEL, decode_gather.KERNEL, decode_scan.KERNEL,
+               *si.KERNELS}
     assert set(cw.STAGE_KERNELS) <= set(cw.stage_names())
     for stage, ks in cw.STAGE_KERNELS.items():
         assert ks and set(ks) <= kernels, stage
-    # all five kernels lie on the registry's path
+    # all six kernels lie on the registry's path
     assert {k for ks in cw.STAGE_KERNELS.values() for k in ks} == kernels
 
 

@@ -13,13 +13,14 @@ PKG = pathlib.Path(__file__).resolve().parent.parent / "m3_tpu_torch"
 REF = PKG.parent / "m3_tpu"
 
 # the reference's modules the port carries under another name: the codec
-# scans (the decode's scan a kernel of its own), the three Pallas kernel files (each a wrapper module beside its
+# scans (each scan a kernel of its own), the three Pallas kernel files (each a wrapper module beside its
 # hand-written kernels), the IR text classifier (the port has no XLA text:
 # it classes aten dispatch records), the TPU bisector (card against CPU)
 # and the jax lint family
 RENAMED = {
     "encoding/m3tsz_jax.py": ["encoding/m3tsz_torch.py", "parallel/decode_scan.py",
-                              "csrc/decode_scan.cu"],
+                              "csrc/decode_scan.cu", "parallel/encode_scan.py",
+                              "csrc/encode_scan.cu"],
     "parallel/pallas_encode.py": ["parallel/encode_place.py", "csrc/place_words.cu"],
     "parallel/pallas_decode.py": ["parallel/decode_gather.py", "csrc/extract_fields.cu"],
     "parallel/pallas_ingest.py": ["parallel/segment_ingest.py", "csrc/segment_ingest.cu",
